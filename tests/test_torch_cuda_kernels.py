@@ -1,0 +1,86 @@
+"""CUDA kernels against their plain twins, and the slice on the card
+against the CPU path.  Every test here needs an NVIDIA GPU: the module
+carries the ``cuda`` marker (registered in pytest.ini) and uses the
+``cuda_device`` fixture, which skips the test where
+``torch.cuda.is_available()`` is false.
+
+Run on the card (tests/conftest.py imports jax, which that machine
+lacks) with:  python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vgaligner_tpu_torch.ops import chain as C
+from vgaligner_tpu_torch.ops import poa_device as PD
+from vgaligner_tpu_torch.testing import random_poa_batch, sample_reads, write_synthetic_gfa
+
+pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_device")]
+K = 11
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("seed,B,A,bw", [(0, 64, 256, 50), (1, 3, 3000, 50), (2, 16, 128, 100)])
+def test_chain_kernel_matches_plain(cuda_device, seed, B, A, bw):
+    rng = np.random.default_rng(seed)
+    qb = torch.from_numpy(rng.integers(0, 90, (B, A)).astype(np.int32))
+    tb = torch.from_numpy(rng.integers(0, 2 * A, (B, A)).astype(np.int64))
+    valid = torch.from_numpy(rng.random((B, A)) < 0.9)
+    _o, qb_s, tb_s, te_s, v_s = C.sort_anchors(qb, tb, tb + K, valid)
+    args = [x.to(cuda_device).contiguous() for x in (qb_s, tb_s.int(), te_s.int(), v_s)]
+    got = C.chain_dp(*args, K, bw, 1000)
+    want = C.chain_dp_plain(*[a.cpu() for a in args], K, bw, 1000)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_gap_cost_kernel_matches_plain(cuda_device):
+    g = torch.arange(0, 1001, dtype=torch.int32)
+    assert torch.equal(C.gap_cost_scaled_i32(g.to(cuda_device), K).cpu(),
+                       C.gap_cost_scaled_i32_plain(g, K))
+
+
+@pytest.mark.parametrize("P,W,V", [(2, 128, 256), (4, 256, 128), (8, 128, 512)])
+def test_poa_kernels_match_plain(cuda_device, P, W, V):
+    arrs = random_poa_batch(P + W + V, 12, V, P, W - 1)
+    t = [torch.from_numpy(a) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(W - 1))
+    s, k, tb = PD.poa_dp(*[x.to(cuda_device) for x in t], init.to(cuda_device))
+    tape, tl = PD.poa_traceback(tb, t[1].to(cuda_device), k, t[5].to(cuda_device))
+    ws, wk, wtb = PD.poa_dp_plain(*t, init)
+    wtape, wtl = PD.poa_traceback_plain(tb.cpu(), t[1], k.cpu(), t[5])
+    assert torch.equal(s.cpu(), ws) and torch.equal(k.cpu(), wk)
+    for b, n in enumerate(arrs[3]):
+        assert torch.equal(tb[b, :n].cpu(), wtb[b, :n])
+    assert torch.equal(tl.cpu(), wtl)
+    for b, n in enumerate(wtl.tolist()):
+        assert torch.equal(tape[b, :n].cpu(), wtape[b, :n])
+
+
+def test_slice_on_the_card_matches_cpu(cuda_device, tmp_path):
+    from vgaligner_tpu_torch._shared.graph import graph_from_gfa
+    from vgaligner_tpu_torch._shared.index import Index
+    from vgaligner_tpu_torch._shared.io.fastx import QuerySequence
+    from vgaligner_tpu_torch.models.mapper import Mapper
+    from vgaligner_tpu_torch.models.poa_aligner import PoaAligner
+
+    gfa = str(tmp_path / "g.gfa")
+    write_synthetic_gfa(gfa, seed=4, backbone_len=1500, n_haplotypes=5)
+    graph = graph_from_gfa(gfa)
+    index = Index.build(graph, K, 100, 100)
+    qs = [QuerySequence(name=f"r{i}", seq=s) for i, s in
+          enumerate(sample_reads(graph, 96, 100, sub_rate=0.02, n_rate=0.01))]
+    out = []
+    for d in (cuda_device, torch.device("cpu")):
+        m = Mapper(index, d, precision="fast")
+        chains = m.map_reads(qs)
+        alns = PoaAligner(index, d).best_alignments_for_queries(chains)
+        out.append((m.chains_gaf_text(chains), "".join(a.to_string() for a in alns)))
+    assert out[0] == out[1]
