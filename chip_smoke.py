@@ -7,26 +7,43 @@ Phases, one line each; any failure raises and the exit code is not 0:
 
   1. environment: torch, CUDA and nvcc versions, and the card's name and
      power limit as nvidia-smi reports them;
-  2. build: nvcc compiles the three kernels from kernels/csrc into
-     vgaligner_tpu_torch/_build/;
+  2. build: nvcc compiles the kernels from kernels/csrc (one process per
+     source, in parallel) into vgaligner_tpu_torch/_build/;
   3. kernels against their plain PyTorch twins on the same CUDA tensors
-     (tolerance 0: every value is an integer or an integer-valued f32):
-     the chaining DP at the main path's shape (4,096 reads x 256
-     anchors of real reads) and at A = 16,384 and 65,536; the gap cost
-     for g = 0..1000; the POA DP and traceback on random DAG batches
-     (P in 2/4/8, W in 128/256, V in 256/2048) and at the main path's
-     chunk shape (1,024 x 256 x 128), with kernel and twin times;
+     (tolerance 0: every value is an integer, an integer-valued f32, or
+     an f64 compared as its int64 bit pattern):
+       K1 chaining DP (fast) at the main path's shape (4,096 reads x 256
+       anchors of real reads) and at A = 16,384 and 65,536; the gap cost
+       for g = 0..1000;
+       K2 POA DP and K3 traceback on random DAG batches (P in 2/4/8, W in
+       128/256, V in 256/2048), at W 2,048/4,096/8,192 (V 256/2048), and
+       at the main path's chunk shape (1,024 x 256 x 128); the same DP
+       under the lane-padded contract of the JAX package's VMEM-resident
+       Pallas DP (poa_global_kernel, 1,024 x 256, L 100);
+       K4 local POA on random batches (P 2/4/8, W 128/256/2048, V
+       256/2048, problems with no positive cell and nv < V);
+       K5 exact chaining DP on the real anchors at 4,096 x 256 and at
+       A = 16,384 and 65,536, beside K1's time at the same shape;
   4. the main path through the CLI entry points: ``index -k 11`` and
-     ``map -p abpoa -D -G --precision auto`` over 12,288 100 bp reads
-     of a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes),
-     with every launch counter reset before the map and read after it;
-     the first 256 reads are mapped again with ``--device cpu
-     --precision fast`` (the plain twins) and both GAFs must be
-     byte-identical to the card run's rows for those reads.
+     ``map -p abpoa -D -G --precision auto`` over 12,288 100 bp reads of
+     a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes);
+     the first 256 reads again with ``--device cpu --precision fast``
+     (the plain twins), and both GAFs byte-identical for those reads;
+  5. the rspoa path: ``map -p rspoa -D -G --precision exact`` over the
+     same reads: K4 and K5 launched, K1 not, no subgraph GFA written,
+     95 % of reads aligned, and the first 256 reads byte-identical to
+     ``--device cpu --precision exact``; K4 is then timed against its
+     twin on the largest batch that run gave it;
+  6. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
+     of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096,
+     and a subgraph over 8,192 vertices on the native host POA), card
+     and ``--device cpu`` byte-identical.
+Every CLI phase resets the launch counters just before its run and
+reads them just after.
 
 Then one JSON line of per-kernel results and, last, the device line.
-The CLI runs in a temporary directory (it writes one subgraph GFA per
-chain), which is removed at the end.
+The CLI runs in a temporary directory (the abPOA path writes one
+subgraph GFA per chain), which is removed at the end.
 """
 
 import json
@@ -44,6 +61,7 @@ READ_LEN = 100
 K = 11
 CPU_SAMPLE = 256
 SEED_GRAPH = 0
+N_LONG = 64
 
 
 def _cuda_ms(fn, reps):
@@ -67,6 +85,15 @@ def _max_abs_err(a, b):
     if a.numel() == 0:
         return 0.0
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def _same_bits(a, b):
+    """Equal tensors; f64 compared as int64 bit patterns."""
+    import torch
+
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return torch.equal(a, b)
 
 
 def phase_env():
@@ -100,22 +127,20 @@ def phase_build():
 
 
 def _main_path_anchors(index, reads, dev):
-    """The chain kernel's input at the main path's shape: the first
-    4,096 reads encoded, looked up at a_max 256 and sorted."""
-    import torch
-
+    """The chain kernels' input at the main path's shape: the first
+    4,096 reads encoded, looked up at a_max 256 and sorted (tb/te int64)."""
     from vgaligner_tpu_torch.index.device_index import device_index
     from vgaligner_tpu_torch.ops.chain import sort_anchors
     from vgaligner_tpu_torch.ops.encode import encode_reads_host, window_kmer_codes
     from vgaligner_tpu_torch.ops.lookup import lookup_and_materialize_anchors
+    import torch
 
     codes, lens = encode_reads_host(reads[:4096], 128)
     dindex = device_index(index, dev)
     w, wv = window_kmer_codes(torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev), K)
     anchors = lookup_and_materialize_anchors(dindex, w, wv, 256)
     _o, qb, tb, te, valid = sort_anchors(anchors.qb, anchors.tb, anchors.te, anchors.valid)
-    return (qb.contiguous(), tb.to(torch.int32).contiguous(),
-            te.to(torch.int32).contiguous(), valid.contiguous())
+    return qb.contiguous(), tb.contiguous(), te.contiguous(), valid.contiguous()
 
 
 def _random_sorted_anchors(seed, B, A, dev):
@@ -129,52 +154,74 @@ def _random_sorted_anchors(seed, B, A, dev):
     valid = rng.random((B, A)) < 0.9
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     _o, qb_s, tb_s, te_s, v_s = sort_anchors(t(qb), t(tb), t(tb + K), t(valid))
-    return (qb_s.contiguous(), tb_s.to(torch.int32).contiguous(),
-            te_s.to(torch.int32).contiguous(), v_s.contiguous())
+    return qb_s.contiguous(), tb_s.contiguous(), te_s.contiguous(), v_s.contiguous()
 
 
-def phase_kernels(index, reads, dev):
+def _fast_args(args):
+    """(qb, tb, te, valid) with tb/te as the fast kernel's int32."""
+    import torch
+
+    qb, tb, te, valid = args
+    return qb, tb.to(torch.int32).contiguous(), te.to(torch.int32).contiguous(), valid
+
+
+def _check_equal(label, names, got, want, errs):
+    import torch
+
+    torch.cuda.synchronize()
+    for name, g, w in zip(names, got, want):
+        if not _same_bits(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"{label}: {name} differs in {bad} places")
+        errs.append(_max_abs_err(g, w))
+
+
+def phase_chain_kernels(index, reads, dev, results):
     import torch
 
     from vgaligner_tpu_torch.ops import chain as C
-    from vgaligner_tpu_torch.ops import poa_device as PD
-    from vgaligner_tpu_torch.testing import random_poa_batch
 
-    results = {}
-
-    # ---- K1: chaining DP
-    errs = []
+    table = C.make_gap_cost_table(K, 1000)
     cases = [("main 4096x256", _main_path_anchors(index, reads, dev)),
              ("A=16384", _random_sorted_anchors(1, 4, 16384, dev)),
              ("A=65536", _random_sorted_anchors(2, 2, 65536, dev))]
+    names = ("f", "pred", "curr_max")
+    errs, errs_x = [], []
     for label, args in cases:
-        got = C.chain_dp(*args, K, 50, 1000)
-        torch.cuda.synchronize()
-        want = C.chain_dp_plain(*args, K, 50, 1000)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("f", "pred", "curr_max"), got, want):
-            if not torch.equal(g, w):
-                bad = int((g != w).sum())
-                raise AssertionError(f"chain_dp {label}: {name} differs in {bad} places")
-            errs.append(_max_abs_err(g, w))
-        print(f"[kernels] chain_dp {label}: f/pred/curr_max equal "
-              f"({int(args[3].sum())} valid anchors)")
-    main_args = cases[0][1]
-    ms = _cuda_ms(lambda: C.chain_dp(*main_args, K, 50, 1000), 10)
-    plain_ms = _cuda_ms(lambda: C.chain_dp_plain(*main_args, K, 50, 1000), 1)
+        fa = _fast_args(args)
+        got = C.chain_dp(*fa, K, 50, 1000)
+        _check_equal(f"chain_dp {label}", names, got, C.chain_dp_plain(*fa, K, 50, 1000), errs)
+        got = C.chain_dp_exact(*args, K, 50, table)
+        _check_equal(f"chain_dp_exact {label}", names, got,
+                     C.chain_dp_exact_plain(*args, K, 50, table), errs_x)
+        print(f"[kernels] chain_dp and chain_dp_exact {label}: f/pred/curr_max equal, "
+              f"f64 bit for bit ({int(args[3].sum())} valid anchors)")
+    main = cases[0][1]
+    fa = _fast_args(main)
+    ms = _cuda_ms(lambda: C.chain_dp(*fa, K, 50, 1000), 10)
+    plain_ms = _cuda_ms(lambda: C.chain_dp_plain(*fa, K, 50, 1000), 1)
+    ms_x = _cuda_ms(lambda: C.chain_dp_exact(*main, K, 50, table), 10)
+    plain_x = _cuda_ms(lambda: C.chain_dp_exact_plain(*main, K, 50, table), 1)
     results["chain_dp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
-    print(f"[kernels] chain_dp 4096x256: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results["chain_dp_exact"] = dict(max_abs_err=max(errs_x), ms=ms_x, plain_ms=plain_x)
+    print(f"[kernels] chaining 4096x256: K1 fast {ms:.3f} ms (plain {plain_ms:.3f} ms), "
+          f"K5 exact {ms_x:.3f} ms (plain {plain_x:.3f} ms)")
 
     gaps = torch.arange(0, 1001, dtype=torch.int32)
     g_dev = C.gap_cost_scaled_i32(gaps.to(dev), K).cpu()
     g_cpu = C.gap_cost_scaled_i32_plain(gaps, K)
-    table = C.make_gap_cost_table(K, 1000)
     g_f64 = torch.from_numpy(np.floor(table * 1000.0 + 0.5).astype(np.int64))
     if not torch.equal(g_dev, g_cpu) or not torch.equal(g_dev.to(torch.int64), g_f64):
         raise AssertionError("gap cost on the card differs from the CPU / f64 table")
     print("[kernels] gap cost g=0..1000: card == CPU plain == rounded f64 table")
 
-    # ---- K2 + K3: POA DP and traceback
+
+def phase_poa_kernels(dev, results):
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import random_poa_batch
+
     dp_err, tb_err = [], []
 
     def run_batch(seed, B, V, P, W):
@@ -201,14 +248,18 @@ def phase_kernels(index, reads, dev):
                 raise AssertionError(f"poa_traceback P={P} W={W} V={V}: tape differs ({b})")
         dp_err.append(_max_abs_err(s_k, s_p))
         tb_err.append(_max_abs_err(tl_k, tl_p))
+        print(f"[kernels] poa_dp + poa_traceback P={P} W={W} V={V} B={B}: "
+              "score/best_sink/tbits[:nv]/tape[:tlen]/tlen equal")
         return t, init, tb_k, k_k
 
     for P in (2, 4, 8):
         for W in (128, 256):
             for V, B in ((256, 32), (2048, 8)):
                 run_batch(100 + P * 10 + W + V, B, V, P, W)
-                print(f"[kernels] poa_dp + poa_traceback P={P} W={W} V={V} B={B}: "
-                      "score/best_sink/tbits[:nv]/tape[:tlen]/tlen equal")
+    # rows over 1,024 columns (reads over 1,023 bp): several columns a thread
+    for W in (2048, 4096, 8192):
+        for V, B in ((256, 64), (2048, 64 if W < 8192 else 32)):
+            run_batch(200 + W + V, B, V, 2, W)
     t, init, tbits, sinks = run_batch(7, 1024, 256, 2, 128)
     ms_dp = _cuda_ms(lambda: PD.poa_dp(*t, init), 5)
     plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
@@ -217,9 +268,47 @@ def phase_kernels(index, reads, dev):
     print(f"[kernels] poa 1024x256x128 P=2 equal; poa_dp kernel {ms_dp:.3f} ms, "
           f"plain {plain_dp:.3f} ms; poa_traceback kernel {ms_tb:.3f} ms, "
           f"plain {plain_tb:.3f} ms")
+
+    # the lane-padded contract of the JAX package's VMEM-resident DP
+    arrs = random_poa_batch(8, 1024, 256, 2, 100)
+    t = [torch.from_numpy(a).to(dev) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(100)).to(dev)
+    got = PD.poa_global_kernel(*t, init)
+    q_w, init_w = PD.lane_pad(t[4], init)
+    s_p, k_p, tb_p = PD.poa_dp_plain(*t[:4], q_w, t[5], init_w)
+    want = (s_p,) + PD.poa_traceback_plain(tb_p, t[1], k_p, t[5])
+    _check_equal("poa_global_kernel 1024x256 L=100", ("score", "tape", "tlen"), got, want,
+                 dp_err)
+    print(f"[kernels] poa_global_kernel 1024x256 L=100 (l_w {q_w.shape[1] + 1}): "
+          "score/tape/tlen equal to the plain chain")
     results["poa_dp"] = dict(max_abs_err=max(dp_err), ms=ms_dp, plain_ms=plain_dp)
     results["poa_traceback"] = dict(max_abs_err=max(tb_err), ms=ms_tb, plain_ms=plain_tb)
-    return results
+
+
+def phase_local_kernel(dev, results):
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import random_poa_batch
+
+    errs = []
+    for P in (2, 4, 8):
+        for W in (128, 256, 2048):
+            for V in (256, 2048):
+                vcodes, vpred, _sink, nv, q, nq = random_poa_batch(P + W + V, 32, V, P, W - 1)
+                q[0] = 4  # no positive cell
+                n = min(V, W - 1) // 2
+                q[1:, :n] = vcodes[1:, :n]  # long local matches
+                t = [torch.from_numpy(a).to(dev) for a in (vcodes, vpred, nv, q, nq)]
+                got = PD.poa_local(*t)
+                want = PD.poa_local_plain(*t)
+                _check_equal(f"poa_local P={P} W={W} V={V}", ("best", "tape", "tlen", "qend"),
+                             got, want, errs)
+                if float(got[0][0]) != 0.0 or not bool((nv < V).any()):
+                    raise AssertionError("poa_local batch lacks its edge cases")
+                print(f"[kernels] poa_local P={P} W={W} V={V} B=32: best/tape/tlen/qend equal "
+                      f"(max tlen {int(got[2].max())})")
+    results["poa_local"] = dict(max_abs_err=max(errs))
 
 
 def _rows_for(path, names):
@@ -228,38 +317,45 @@ def _rows_for(path, names):
     return b"".join(ln for ln in lines if ln.split(b"\t", 1)[0] in names)
 
 
-def phase_main_path(work, gfa, fasta, reads, card):
+def _map(prefix, fasta, gfa, out, argv):
+    from vgaligner_tpu_torch import cli
+
+    os.makedirs(os.path.dirname(out))
+    os.chdir(os.path.dirname(out))
+    cli.main(["map", "-i", prefix, "-f", fasta, "-G", gfa, "-D", "-o", out, *argv])
+
+
+def _drive(label, prefix, fasta, gfa, out, argv, must, must_not=()):
+    """One CLI run on the card with the launch counters reset just
+    before it and read just after."""
     import torch
 
-    from vgaligner_tpu_torch import cli, kernels
+    from vgaligner_tpu_torch import kernels
 
-    prefix = os.path.join(work, "graph")
-    cli.main(["index", "-i", gfa, "-k", str(K), "-o", prefix])
-    os.makedirs(os.path.join(work, "card"))
-    os.chdir(os.path.join(work, "card"))
-    out = os.path.join(work, "card", "smoke")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    cli.main(["map", "-i", prefix, "-f", fasta, "-p", "abpoa", "-D", "-G", gfa,
-              "--precision", "auto", "--device", "cuda", "-o", out])
+    _map(prefix, fasta, gfa, out, argv + ["--device", "cuda"])
     torch.cuda.synchronize()
     took = time.monotonic() - t0
     launches = kernels.launch_counts()
-    for name in ("chain_dp", "poa_dp", "poa_traceback"):
+    for name in must:
         if launches[name] <= 0:
-            raise AssertionError(f"the main path never launched {name}: {launches}")
-    rate = N_READS / took
-    print(f"[main] map -p abpoa -D on {N_READS} reads: {took:.2f} s, {rate:.1f} reads/s "
-          f"streamed map+align ({card}); launches {launches}")
+            raise AssertionError(f"{label} never launched {name}: {launches}")
+    for name in must_not:
+        if launches[name] != 0:
+            raise AssertionError(f"{label} launched {name}: {launches}")
+    return took, launches
 
+
+def _check_gaf(out, n_reads, read_lens):
     with open(out + "-alignments.gaf", "rb") as fh:
         aln = fh.read().splitlines()
     with open(out + "-chains.gaf", "rb") as fh:
         chains = fh.read().splitlines()
-    if len(aln) != N_READS or len(chains) < N_READS:
+    if len(aln) != n_reads or len(chains) < n_reads:
         raise AssertionError(f"{len(aln)} alignment rows, {len(chains)} chain rows "
-                             f"for {N_READS} reads")
+                             f"for {n_reads} reads")
     mapped = 0
     for row in aln:
         cols = row.split(b"\t")
@@ -267,32 +363,127 @@ def phase_main_path(work, gfa, fasta, reads, card):
             raise AssertionError(f"malformed GAF row {row[:80]!r}")
         if cols[5] != b"*":
             mapped += 1
-            if int(cols[1]) != READ_LEN or int(cols[6]) <= 0 or not cols[12].startswith(b"as:i:"):
+            name = cols[0].decode()
+            if int(cols[1]) != read_lens[name] or int(cols[6]) <= 0:
                 raise AssertionError(f"implausible alignment row {row[:120]!r}")
-    if mapped < 0.95 * N_READS:
-        raise AssertionError(f"only {mapped} of {N_READS} path-sampled reads aligned")
-    print(f"[main] {len(chains)} chain rows, {mapped}/{N_READS} reads aligned")
+    if mapped < 0.95 * n_reads:
+        raise AssertionError(f"only {mapped} of {n_reads} path-sampled reads aligned")
+    return len(chains), mapped
 
-    sample_fa = os.path.join(work, "sample.fa")
+
+def _cpu_rerun(work, name, prefix, gfa, reads, out, argv):
+    """The first CPU_SAMPLE reads on the plain twins; both GAFs equal to
+    the card run's rows for those reads."""
+    sample_fa = os.path.join(work, f"{name}-sample.fa")
     with open(sample_fa, "w") as fh:
-        for i in range(CPU_SAMPLE):
+        for i in range(min(CPU_SAMPLE, len(reads))):
             fh.write(f">read{i}\n{reads[i]}\n")
-    os.makedirs(os.path.join(work, "cpu"))
-    os.chdir(os.path.join(work, "cpu"))
-    cpu_out = os.path.join(work, "cpu", "smoke")
-    cli.main(["map", "-i", prefix, "-f", sample_fa, "-p", "abpoa", "-D", "-G", gfa,
-              "--precision", "fast", "--device", "cpu", "-o", cpu_out])
-    names = {f"read{i}".encode() for i in range(CPU_SAMPLE)}
+    cpu_out = os.path.join(work, f"{name}-cpu", "smoke")
+    _map(prefix, sample_fa, gfa, cpu_out, argv + ["--device", "cpu"])
+    names = {f"read{i}".encode() for i in range(min(CPU_SAMPLE, len(reads)))}
     for kind in ("chains", "alignments"):
         card_rows = _rows_for(f"{out}-{kind}.gaf", names)
         with open(f"{cpu_out}-{kind}.gaf", "rb") as fh:
             cpu_rows = fh.read()
         if card_rows != cpu_rows:
-            raise AssertionError(f"{kind} GAF of the first {CPU_SAMPLE} reads differs "
+            raise AssertionError(f"{name}: {kind} GAF of the first {len(names)} reads differs "
                                  "between the card and the CPU plain path")
-    print(f"[main] first {CPU_SAMPLE} reads: chains and alignments GAF byte-identical "
+    return len(names)
+
+
+def phase_main_path(work, prefix, gfa, fasta, reads, card):
+    out = os.path.join(work, "card", "smoke")
+    took, launches = _drive("the main path", prefix, fasta, gfa, out,
+                            ["-p", "abpoa", "--precision", "auto"],
+                            ("chain_dp", "poa_dp", "poa_traceback"))
+    print(f"[main] map -p abpoa -D on {N_READS} reads: {took:.2f} s, {N_READS / took:.1f} "
+          f"reads/s streamed map+align ({card}); launches {launches}")
+    n_chains, mapped = _check_gaf(out, N_READS, {f"read{i}": READ_LEN for i in range(N_READS)})
+    print(f"[main] {n_chains} chain rows, {mapped}/{N_READS} reads aligned")
+    n = _cpu_rerun(work, "main", prefix, gfa, reads, out, ["-p", "abpoa", "--precision", "fast"])
+    print(f"[main] first {n} reads: chains and alignments GAF byte-identical "
           "to the --device cpu run")
     return launches
+
+
+def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    captured = {}
+    real = PD.poa_local
+
+    def keep_largest(*args):
+        if not captured or args[0].shape[0] > captured["args"][0].shape[0]:
+            captured["args"] = args
+        return real(*args)
+
+    out = os.path.join(work, "rspoa", "smoke")
+    PD.poa_local = keep_largest
+    try:
+        took, launches = _drive("the rspoa path", prefix, fasta, gfa, out,
+                                ["-p", "rspoa", "--precision", "exact"],
+                                ("chain_dp_exact", "poa_local"), ("chain_dp", "poa_dp"))
+    finally:
+        PD.poa_local = real
+    print(f"[rspoa] map -p rspoa -D --precision exact on {N_READS} reads: {took:.2f} s, "
+          f"{N_READS / took:.1f} reads/s ({card}); launches {launches}")
+    exported = [f for _r, _d, fs in os.walk(os.path.dirname(out)) for f in fs
+                if "-subgraph-" in f]
+    if exported:
+        raise AssertionError(f"the rspoa route wrote {len(exported)} subgraph GFAs")
+    n_chains, mapped = _check_gaf(out, N_READS, {f"read{i}": READ_LEN for i in range(N_READS)})
+    print(f"[rspoa] {n_chains} chain rows, {mapped}/{N_READS} reads aligned, "
+          "no subgraph GFA written")
+    n = _cpu_rerun(work, "rspoa", prefix, gfa, reads, out, ["-p", "rspoa", "--precision", "exact"])
+    print(f"[rspoa] first {n} reads: chains and alignments GAF byte-identical "
+          "to the --device cpu --precision exact run")
+
+    args = captured["args"]
+    got = real(*args)
+    want = PD.poa_local_plain(*args)
+    errs = []
+    _check_equal("poa_local on the main reads' batch", ("best", "tape", "tlen", "qend"), got,
+                 want, errs)
+    ms = _cuda_ms(lambda: real(*args), 5)
+    plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
+    B, V = args[0].shape
+    print(f"[rspoa] poa_local on the main reads' largest batch B={B} V={V} "
+          f"W={args[3].shape[1] + 1} P={args[1].shape[-1]}: equal; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms")
+    results["poa_local"].update(max_abs_err=max(results["poa_local"]["max_abs_err"], *errs),
+                                ms=ms, plain_ms=plain_ms)
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_long_reads(work, prefix, gfa, graph, card):
+    from vgaligner_tpu_torch.testing import sample_reads, write_fasta
+
+    rng = np.random.default_rng(3)
+    lens = [int(x) for x in rng.integers(1500, 2101, N_LONG)] + [10000]
+    reads = [sample_reads(graph, 1, n, seed=1000 + i, sub_rate=0.01)[0]
+             for i, n in enumerate(lens)]
+    fasta = os.path.join(work, "long.fa")
+    write_fasta(fasta, reads)
+    out = os.path.join(work, "long-card", "smoke")
+    argv = ["-p", "abpoa", "--precision", "fast"]
+    took, launches = _drive("the long-read path", prefix, fasta, gfa, out, argv,
+                            ("chain_dp", "poa_dp", "poa_traceback"))
+    n_chains, mapped = _check_gaf(out, len(reads),
+                                  {f"read{i}": len(r) for i, r in enumerate(reads)})
+    cpu_out = os.path.join(work, "long-cpu", "smoke")
+    t0 = time.monotonic()
+    _map(prefix, fasta, gfa, cpu_out, argv + ["--device", "cpu"])
+    cpu_took = time.monotonic() - t0
+    for kind in ("chains", "alignments"):
+        with open(f"{out}-{kind}.gaf", "rb") as a, open(f"{cpu_out}-{kind}.gaf", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"long reads: {kind} GAF differs between card and CPU")
+    print(f"[long] map -p abpoa -D on {N_LONG} reads of 1,500-2,100 bp and one of 10 kb: "
+          f"card {took:.2f} s ({card}), CPU plain {cpu_took:.2f} s; {mapped}/{len(reads)} "
+          f"aligned; chains and alignments GAF byte-identical; launches {launches}")
 
 
 def main() -> int:
@@ -303,16 +494,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vgaligner_tpu_torch import cli
     from vgaligner_tpu_torch._shared.graph import graph_from_gfa
     from vgaligner_tpu_torch._shared.index import Index
     from vgaligner_tpu_torch.testing import sample_reads, write_fasta, write_synthetic_gfa
 
+    t_start = time.monotonic()
     card = phase_env()
     dev = torch.device("cuda", 0)
     phase_build()
 
     cwd = os.getcwd()
     work = tempfile.mkdtemp(prefix="vg_chip_smoke_")
+    results = {}
     try:
         gfa = os.path.join(work, "graph.gfa")
         shape = write_synthetic_gfa(gfa, seed=SEED_GRAPH)
@@ -322,25 +516,33 @@ def main() -> int:
         write_fasta(fasta, reads)
         print(f"[data] synthetic graph {shape}, {len(reads)} reads of {READ_LEN} bp")
         index = Index.build(graph, K, 100, 100)
-        results = phase_kernels(index, reads, dev)
-        launches = phase_main_path(work, gfa, fasta, reads, card)
+        prefix = os.path.join(work, "graph")
+        cli.main(["index", "-i", gfa, "-k", str(K), "-o", prefix])
+        phase_chain_kernels(index, reads, dev, results)
+        phase_poa_kernels(dev, results)
+        phase_local_kernel(dev, results)
+        launches = phase_main_path(work, prefix, gfa, fasta, reads, card)
+        launches_rspoa = phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results)
+        phase_long_reads(work, prefix, gfa, graph, card)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
+    k2_replaces = "vgaligner_tpu/ops/poa_pallas2.py:434, vgaligner_tpu/ops/poa_pallas.py:258"
     sources = {
-        "chain_dp": ("vgaligner_tpu_torch/kernels/csrc/chain_dp.cu",
-                     "vgaligner_tpu/ops/chain_pallas.py:187"),
-        "poa_dp": ("vgaligner_tpu_torch/kernels/csrc/poa_dp.cu",
-                   "vgaligner_tpu/ops/poa_pallas2.py:434"),
-        "poa_traceback": ("vgaligner_tpu_torch/kernels/csrc/poa_traceback.cu",
-                          "vgaligner_tpu/ops/poa_device.py:325"),
+        "chain_dp": ("chain_dp.cu", "vgaligner_tpu/ops/chain_pallas.py:187", launches),
+        "poa_dp": ("poa_dp.cu", k2_replaces, launches),
+        "poa_traceback": ("poa_traceback.cu", "vgaligner_tpu/ops/poa_device.py:325", launches),
+        "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075", launches_rspoa),
+        "chain_dp_exact": ("chain_dp_exact.cu", "vgaligner_tpu/ops/chain.py:102-177",
+                           launches_rspoa),
     }
     line = {"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-             **results[name])
-        for name, (src, rep) in sources.items()
+        dict(name=name, route="cuda", source=f"vgaligner_tpu_torch/kernels/csrc/{src}",
+             replaces=rep, launches=counts[name], **results[name])
+        for name, (src, rep, counts) in sources.items()
     ]}
+    print(f"[done] smoke took {time.monotonic() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,9 +110,3 @@ def test_kernel_log2_coefficients_are_the_f32_roundings():
         want = np.float32(jax_chain._LOG2_COEF[int(d)]).view(np.uint32)
         assert int(hexbits, 16) == int(want)
     assert C._LOG2_COEF == jax_chain._LOG2_COEF
-
-
-def test_exact_mode_refuses_non_cpu_tensors():
-    x = torch.zeros((1, 4), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="B5"):
-        C.chain_dp_exact_plain(x, x, x, x.bool(), K, 50, C.make_gap_cost_table(K, 1000))

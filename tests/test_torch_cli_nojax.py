@@ -71,6 +71,22 @@ def test_cli_index_and_map_align_with_jax_blocked(tmp_path, tiny):
     assert len(os.listdir(tmp_path / "subgraphs")) >= 1  # -G exports subgraphs
 
 
+def test_cli_rspoa_exact_with_jax_blocked(tmp_path, tiny):
+    gfa, fa = tiny
+    prefix = str(tmp_path / "tiny")
+    proc = _run(tmp_path, [
+        ["index", "-i", gfa, "-k", "11"],
+        ["map", "-i", prefix, "-f", fa, "-p", "rspoa", "-D", "-G", gfa, "--precision",
+         "exact", "--device", "cpu", "-o", str(tmp_path / "out")],
+    ])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+    alns = (tmp_path / "out-alignments.gaf").read_text().splitlines()
+    assert len(alns) == 12 and all(len(r.split("\t")) == 13 for r in alns)
+    assert sum(r.split("\t")[5] != "*" for r in alns) >= 10
+    assert not (tmp_path / "subgraphs").exists()  # the rspoa route exports none
+
+
 def _imported_modules(path):
     with open(path) as fh:
         tree = ast.parse(fh.read(), filename=path)
@@ -107,7 +123,6 @@ def test_default_device_without_a_card_is_an_error(tmp_path, tiny):
 
 
 @pytest.mark.parametrize("extra,roadmap", [
-    (["-p", "rspoa"], "A11"),
     (["-p", "abpoa", "-t", "2"], "A12"),
     (["-p", "abpoa", "--shard-index"], "A12"),
 ])

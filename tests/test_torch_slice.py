@@ -3,8 +3,11 @@
 Chains GAF and alignments GAF must be byte-identical to the JAX
 ``Mapper`` / ``PoaAligner`` on the CPU, in both precisions, with and
 without --both-strands, for corridor, id and bubble-closure ranges, with
-the host overflow route and --mapq, and through the streaming pipeline.
+the host overflow route and --mapq, through the streaming pipeline, and
+for reads over 1,023 bp through both CLIs.
 """
+
+import os
 
 import pytest
 import torch
@@ -107,8 +110,42 @@ def test_stream_matches_jax(world):
     assert (b"".join(chains), "".join(alns)) == _jax_alignments(world, range_mode="corridor")
 
 
-def test_rspoa_engine_is_refused(world):
-    from vgaligner_tpu_torch.models.poa_aligner import PoaEngine
+def test_long_reads_cli_matches_jax(tmp_path):
+    """Reads of 1,500-2,000 bp (POA rows of W = 2,048, past the old
+    1,024-column limit of the POA kernel) and one 7.6 kb read (a subgraph
+    of about 8,400 vertices, over the 8,192 cap: the native host POA)
+    through both CLIs with --also-align: chains and alignments GAF
+    byte-identical.  (The JAX package's CPU mapper needs about 17 GB for
+    a 10 kb read and 4.6 GB at this length.)"""
+    from vgaligner_tpu import cli as jax_cli
+    from vgaligner_tpu_torch import cli
+    from vgaligner_tpu_torch.testing import write_fasta
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        PoaAligner(world["pidx"], CPU, engine=PoaEngine.RSPOA)
+    gfa = str(tmp_path / "long.gfa")
+    write_synthetic_gfa(gfa, seed=21, backbone_len=11000, n_haplotypes=3)
+    graph = graph_from_gfa(gfa)
+    reads = [sample_reads(graph, 1, n, seed=s, sub_rate=0.01)[0]
+             for s, n in ((1, 1500), (2, 1700), (3, 1900), (4, 2000), (5, 7600))]
+    fasta = str(tmp_path / "long.fa")
+    write_fasta(fasta, reads)
+    prefix = str(tmp_path / "long")
+    cli.main(["index", "-i", gfa, "-k", str(K), "-o", prefix])
+    out = {}
+    for name, main, extra in (("jax", jax_cli.main, []), ("port", cli.main, ["--device", "cpu"])):
+        work = tmp_path / name
+        work.mkdir()
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            main(["map", "-i", prefix, "-f", fasta, "-p", "abpoa", "-D", "-G", gfa, "-t", "1",
+                  "-o", str(work / "out"), *extra])
+        finally:
+            os.chdir(cwd)
+        out[name] = [(work / f"out-{kind}.gaf").read_bytes() for kind in ("chains", "alignments")]
+    assert out["port"] == out["jax"]
+    rows = out["port"][1].decode().splitlines()
+    assert len(rows) == len(reads)
+    for row, read in zip(rows, reads):
+        cols = row.split("\t")
+        assert int(cols[1]) == len(read) and cols[5] != "*"
+        assert int(cols[3]) - int(cols[2]) > 0.9 * len(read)

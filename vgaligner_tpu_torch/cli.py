@@ -11,9 +11,10 @@ The flags, defaults and quirks are those of ``vgaligner_tpu/cli.py``
 
 Added: ``--device {cuda,cpu}`` (default cuda).  The default without a
 usable card is an error, never a CPU run.  ``--precision auto`` is exact
-on the CPU and fast on CUDA.  What the port does not run yet fails
-loudly: ``-p rspoa`` (ROADMAP A11), ``-t`` > 1, ``--shard-index`` and
-``VGALIGNER_TRACE`` (ROADMAP A12).
+on the CPU and fast on CUDA, the JAX CLI's rule.  What the port does not
+run yet fails loudly: ``-t`` > 1, ``--shard-index`` and
+``VGALIGNER_TRACE`` (ROADMAP A12).  With ``-p rspoa`` the aligner writes
+no subgraph GFAs, as the JAX package's rspoa route does not.
 """
 
 from __future__ import annotations
@@ -75,9 +76,9 @@ def _build_parser() -> argparse.ArgumentParser:
     mp.add_argument("--resume", action="store_true")
     mp.add_argument("--both-strands", action="store_true")
     mp.add_argument("--precision", choices=["auto", "exact", "fast"], default="auto",
-                    help="chaining DP arithmetic: 'exact' f64 (CPU only so far, "
-                         "ROADMAP B5), 'fast' scaled int32; 'auto' is exact on "
-                         "cpu and fast on cuda")
+                    help="chaining DP arithmetic: 'exact' f64 (the reference's "
+                         "bits), 'fast' scaled int32; 'auto' is exact on cpu and "
+                         "fast on cuda")
     mp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the array work runs (default cuda; no fallback)")
     return p
@@ -111,8 +112,6 @@ def index_main(args) -> None:
 
 
 def _refuse_unported(args) -> None:
-    if args.poa_aligner == "rspoa":
-        raise NotImplementedError("-p rspoa is not ported yet (ROADMAP A11)")
     if args.threads > 1:
         raise NotImplementedError("-t > 1 (multi-GPU) is not ported yet (ROADMAP A12)")
     if args.shard_index:
@@ -127,7 +126,7 @@ def map_main(args) -> None:
     from ._shared.io.resume import ResumableGafWriter
     from .device import resolve_device, resolve_precision
     from .models.mapper import Mapper
-    from .models.poa_aligner import PoaAligner
+    from .models.poa_aligner import PoaAligner, PoaEngine
     from .models.stream import DEFAULT_BATCH, stream_map_align
 
     _refuse_unported(args)
@@ -155,7 +154,8 @@ def map_main(args) -> None:
         from ._shared.graph import graph_from_gfa
 
         graph = graph_from_gfa(args.input_graph)
-        aligner = PoaAligner(index, device, export_subgraphs=True, graph=graph,
+        aligner = PoaAligner(index, device, engine=PoaEngine(args.poa_aligner),
+                             export_subgraphs=True, graph=graph,
                              bubble_closure=args.bubble_closure,
                              range_mode=args.range_mode)
 

@@ -30,7 +30,8 @@ def resolve_precision(precision: str, device: torch.device) -> str:
     """``auto`` -> exact on the CPU (f64 parity mode), fast on CUDA.
 
     Mirrors the JAX CLI's rule (exact on CPU, fast on accelerators).
-    Exact mode has no CUDA kernel yet (ROADMAP B5)."""
+    Both modes run on either device; ``--precision exact`` on CUDA runs
+    the exact-mode kernel."""
     if precision != "auto":
         return precision
     return "exact" if device.type == "cpu" else "fast"

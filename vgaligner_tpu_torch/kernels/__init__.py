@@ -1,13 +1,14 @@
 """Build, bind and count the port's CUDA kernels.
 
-The three kernels (``csrc/chain_dp.cu``, ``csrc/poa_dp.cu``,
-``csrc/poa_traceback.cu``) are compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface and loaded with ctypes.
-The build runs at first use, into ``vgaligner_tpu_torch/_build/``, keyed
-by a hash of the sources and the flags, so a fresh checkout builds
-everything it needs and a rebuilt source never loads a stale library.
-A failed build raises with nvcc's stderr; a good one keeps ptxas's
-register and shared-memory report of every kernel in ``build_log``.
+The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
+traceback, local POA) are compiled by ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes.  The build runs
+at first use, into ``vgaligner_tpu_torch/_build/``, keyed by a hash of
+the sources and the flags, so a fresh checkout builds everything it
+needs and a rebuilt source never loads a stale library.  A failed build
+raises with nvcc's stderr; a good one keeps ptxas's register and
+shared-memory report of every kernel in ``build_log``.
 
 Every C entry point enqueues on the stream it is given (the wrapper
 passes ``torch.cuda.current_stream()``), allocates nothing, and returns
@@ -31,14 +32,16 @@ from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("chain_dp.cu", "poa_dp.cu", "poa_traceback.cu")
+SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp.cu", "poa_traceback.cu",
+           "poa_local.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"chain_dp": 0, "poa_dp": 0, "poa_traceback": 0, "chain_gap_cost": 0}
+LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp": 0, "poa_traceback": 0,
+            "poa_local": 0, "chain_gap_cost": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -90,16 +93,30 @@ def build() -> str:
         if os.path.exists(path):
             return path
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
+        nvcc = nvcc_path()
+        objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                for s, o in zip(SOURCES, objs)]
         t0 = time.monotonic()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+        failed = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            outs.append(proc.stdout)
+            if proc.returncode != 0:
+                failed.append((link, proc.returncode))
         build_seconds = time.monotonic() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-            )
+        build_log = "".join(outs)
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        if failed:
+            cmd, rc = failed[0]
+            raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{build_log}")
         os.replace(tmp, path)
     return path
 
@@ -116,6 +133,10 @@ def lib() -> ctypes.CDLL:
         so.vg_chain_dp.restype = ci
         so.vg_chain_gap_cost.argtypes = [vp, ci, ci, vp, vp]
         so.vg_chain_gap_cost.restype = ci
+        so.vg_chain_dp_exact.argtypes = [vp] * 5 + [ci] * 5 + [vp] * 4
+        so.vg_chain_dp_exact.restype = ci
+        so.vg_poa_local.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 7
+        so.vg_poa_local.restype = ci
         so.vg_poa_dp.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 5
         so.vg_poa_dp.restype = ci
         so.vg_poa_traceback.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 3
@@ -124,6 +145,15 @@ def lib() -> ctypes.CDLL:
         so.vg_cuda_error_string.restype = ctypes.c_char_p
         _lib = so
         return _lib
+
+
+def check_row_width(name: str, W: int) -> None:
+    """The row widths a one-block-per-problem row kernel (POA DP, local
+    POA) takes: one thread per column up to W = 1,024, then 1,024
+    threads of W / 1,024 columns each, up to W = 16,384."""
+    if not ((W % 32 == 0 and W <= 1024) or (W % 1024 == 0 and W // 1024 in (2, 4, 8, 16))):
+        raise ValueError(f"{name}: unsupported row width W={W} "
+                         "(a multiple of 32 up to 1,024, or 1,024 x 2/4/8/16)")
 
 
 def check(rc: int, name: str) -> None:

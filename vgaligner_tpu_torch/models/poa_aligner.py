@@ -1,12 +1,23 @@
-"""Chain -> subgraph -> global POA on the device -> alignments GAF.
+"""Chain -> subgraph -> POA on the device -> alignments GAF.
 
-Counterpart of the abPOA engine of ``vgaligner_tpu/models/poa_aligner.py``
-(reference: align.rs).  Subgraph extraction (corridor, ``--range-mode
-id``, ``--bubble-closure``), problem arrays and tape decoding run in the
-native runtime; the DP and the traceback run on the device
-(ops/poa_device.py).  Outliers stay on the host as in the JAX package:
-subgraphs above 8,192 base vertices go to the native host POA, and
-vertices with fan-in above 8 to the Python oracle.
+Counterpart of ``vgaligner_tpu/models/poa_aligner.py`` (reference:
+align.rs), both engines.  Subgraph extraction (corridor, ``--range-mode
+id``, ``--bubble-closure``) runs in the native runtime for both; the
+JAX package's rspoa route extracts in Python, and the two give the same
+nodes, edges, handles and label trims in every mode (the port's rspoa
+tests hold the GAFs equal).
+
+  * abPOA (global): native problem arrays and tape decoding around the
+    device DP and traceback (ops/poa_device.py), launched in
+    ``begin_alignments`` and drained in ``finish_alignments``.  Outliers
+    stay on the host as in the JAX package: subgraphs above 8,192 base
+    vertices go to the native host POA, and vertices with fan-in above 8
+    to the Python oracle.
+  * rspoa (local gapless): ``align_local_batch`` runs eagerly inside
+    ``begin_alignments``, as in the JAX package; subgraphs above 8,192
+    base vertices go to the host oracle, and a fan-in above 8 raises
+    ValueError (the reference route's behaviour).  It exports no subgraph
+    GFAs, whatever ``export_subgraphs`` says, as the JAX route does not.
 """
 
 from __future__ import annotations
@@ -27,8 +38,8 @@ from .._shared.native import (
     poa_global_host_native,
 )
 from .._shared.utils.dna import encode_seq
-from ..ops.poa_device import P_MAX, _l_pad_for, _next_pow2, dispatch_bucket, \
-    kernel_finish_all, padded_rows
+from ..ops.poa_device import P_MAX, _l_pad_for, _next_pow2, align_local_batch, \
+    dispatch_bucket, kernel_finish_all, padded_rows
 from .mapper import Chain
 
 log = logging.getLogger(__name__)
@@ -77,9 +88,6 @@ class PoaAligner:
                  bubble_closure: bool = False, range_mode: Optional[str] = None):
         import os
 
-        if engine != PoaEngine.ABPOA:
-            raise NotImplementedError(
-                "the rspoa engine is not ported yet (ROADMAP A11); use -p abpoa")
         require_native()
         self.index = index
         self.device = torch.device(device)
@@ -181,7 +189,10 @@ class PoaAligner:
 
     def begin_alignments(self, per_read_chains: List[List[Chain]], align_best_n: int = 1):
         """Extract, build and launch a batch's POA work without waiting
-        for the device; ``finish_alignments`` drains it."""
+        for the device; ``finish_alignments`` drains it.  The rspoa engine
+        aligns eagerly here, and finish only returns its result."""
+        if self.engine != PoaEngine.ABPOA:
+            return ("eager", self._best_alignments_rspoa(per_read_chains, align_best_n))
         selected: List[Tuple[int, Chain]] = []
         placeholders: dict = {}
         for qi, chains in enumerate(per_read_chains):
@@ -191,10 +202,12 @@ class PoaAligner:
                     continue
                 selected.append((qi, chain))
         pending = self._dispatch_chains([c for _, c in selected]) if selected else None
-        return (per_read_chains, selected, placeholders, pending)
+        return ("abpoa", per_read_chains, selected, placeholders, pending)
 
     def finish_alignments(self, state) -> List[GAFAlignment]:
-        per_read_chains, selected, placeholders, pending = state
+        if state[0] == "eager":
+            return state[1]
+        _tag, per_read_chains, selected, placeholders, pending = state
         per_read: dict = {qi: [a] for qi, a in placeholders.items()}
         if pending is not None:
             for (qi, chain), (res, handles) in zip(selected, self._finish_chains(pending)):
@@ -204,10 +217,33 @@ class PoaAligner:
                 per_read.setdefault(qi, []).append(a)
         return self._select_best(per_read_chains, per_read)
 
-    def _dispatch_chains(self, chains: List[Chain]):
-        """Native extraction + problem arrays around the device POA,
-        launched per (V, L) bucket and chunk; host outliers complete here."""
-        n = len(chains)
+    def _best_alignments_rspoa(self, per_read_chains: List[List[Chain]],
+                               align_best_n: int) -> List[GAFAlignment]:
+        """rspoa engine: local gapless alignment of every selected chain's
+        subgraph in one ``align_local_batch`` (candidates per read in the
+        JAX route's order: placeholders first, then aligned chains)."""
+        selected: List[Tuple[int, Chain]] = []
+        per_read: dict = {}
+        for qi, chains in enumerate(per_read_chains):
+            for chain in self._chains_for_alignment(chains, align_best_n):
+                if chain.is_placeholder:
+                    per_read.setdefault(qi, []).append(GAFAlignment.from_placeholder_chain(chain))
+                    continue
+                selected.append((qi, chain))
+        if selected:
+            sub = self._extract([c for _, c in selected])
+            problems = [(sub.nodes(i), sub.edges(i), chain.query.seq)
+                        for i, (_qi, chain) in enumerate(selected)]
+            for i, ((qi, chain), res) in enumerate(
+                    zip(selected, align_local_batch(problems, self.device))):
+                sub.rebase(i, res)
+                a = GAFAlignment.from_rspoa_result(res, chain, sub.handles(i))
+                a.poa_score = res.best_score
+                per_read.setdefault(qi, []).append(a)
+        return self._select_best(per_read_chains, per_read)
+
+    def _extract(self, chains: List[Chain]) -> "_Subgraphs":
+        """Every chain's subgraph under this aligner's range mode, natively."""
         n_anchors = np.asarray([c.n_anchors for c in chains], dtype=np.int64)
         anchor_off = np.concatenate([[0], np.cumsum(n_anchors)])
         aqb = np.concatenate([c.aqb for c in chains])
@@ -219,78 +255,98 @@ class PoaAligner:
             aso = np.concatenate([zeros(c) if c.aso is None else c.aso for c in chains])
             aeo = np.concatenate([zeros(c) if c.aeo is None else c.aeo for c in chains])
         qlen = np.asarray([len(c.query.seq) for c in chains], dtype=np.int64)
-        (handle_off, handles, label_off, lbase, labels, edge_off, edges, status) = (
-            extract_subgraphs_native(
-                self.index, anchor_off, aqb, atb, ate, aso, aeo, qlen, chains[0].k,
-                bubble_closure=self.bubble_closure, range_mode=self.range_mode,
-            )
+        out = extract_subgraphs_native(
+            self.index, anchor_off, aqb, atb, ate, aso, aeo, qlen, chains[0].k,
+            bubble_closure=self.bubble_closure, range_mode=self.range_mode,
         )
-        if status.any():
+        if out[-1].any():
             raise RuntimeError("range extension did not converge (cyclic region?)")
+        return _Subgraphs(*out[:-1])
 
-        def nodes_of(i):
-            return [labels[label_off[j] : label_off[j + 1]].decode("ascii")
-                    for j in range(handle_off[i], handle_off[i + 1])]
-
-        def edges_of(i):
-            return [(int(a), int(b)) for a, b in edges[edge_off[i] : edge_off[i + 1]]]
-
+    def _dispatch_chains(self, chains: List[Chain]):
+        """Native extraction + problem arrays around the device POA,
+        launched per (V, L) bucket and chunk; host outliers complete here."""
+        n = len(chains)
+        sub = self._extract(chains)
         if self.export_subgraphs and self.graph is not None:
             # every chain's subgraph, as the reference does (map.rs:164)
             from .._shared.io.validate import create_subgraph_gfa, export_gfa
 
             for i, chain in enumerate(chains):
-                rng = handles[handle_off[i] : handle_off[i + 1]].tolist()
                 export_gfa(
-                    create_subgraph_gfa(nodes_of(i), edges_of(i),
-                                        get_subgraph_paths(self.graph, rng)),
+                    create_subgraph_gfa(sub.nodes(i), sub.edges(i),
+                                        get_subgraph_paths(self.graph, sub.handles(i))),
                     f"{chain.query.name}-subgraph-{chain.n_anchors}.gfa",
                 )
 
         qs = [encode_seq(c.query.seq) for c in chains]
-        v_per = label_off[handle_off[1:]] - label_off[handle_off[:-1]]
+        v_per = sub.label_off[sub.handle_off[1:]] - sub.label_off[sub.handle_off[:-1]]
         buckets: dict = {}
         out = [None] * n
         for i in range(n):
             if int(v_per[i]) > _V_DEVICE_CAP:
-                out[i] = poa_global_host_native(nodes_of(i), edges_of(i), chains[i].query.seq)
+                out[i] = poa_global_host_native(sub.nodes(i), sub.edges(i),
+                                                chains[i].query.seq)
                 continue
             key = (_next_pow2(max(int(v_per[i]), 256)), _l_pad_for(len(qs[i])))
             buckets.setdefault(key, []).append(i)
-        edges_flat = np.ascontiguousarray(edges.reshape(-1), dtype=np.int64)
+        edges_flat = np.ascontiguousarray(sub.edges_arr.reshape(-1), dtype=np.int64)
         pending = []
         for (v_pad, l_pad), idxs in sorted(buckets.items()):
             # ascending V keeps each chunk's vertex loop bound tight
             idxs.sort(key=lambda i: int(v_per[i]))
             built = build_poa_batch_arrays(
-                labels, label_off, handle_off.astype(np.int64), edge_off.astype(np.int64),
-                edges_flat, np.asarray(idxs, dtype=np.int64), v_pad, P_MAX,
-                rows=padded_rows(len(idxs), v_pad, l_pad),
+                sub.labels, sub.label_off, sub.handle_off.astype(np.int64),
+                sub.edge_off.astype(np.int64), edges_flat, np.asarray(idxs, dtype=np.int64),
+                v_pad, P_MAX, rows=padded_rows(len(idxs), v_pad, l_pad),
             )
             if built is None:
                 # fan-in above P_MAX: the host oracle (rare)
                 from .._shared.ops.poa import align_global_host
 
                 for i in idxs:
-                    out[i] = align_global_host(nodes_of(i), edges_of(i), chains[i].query.seq)
+                    out[i] = align_global_host(sub.nodes(i), sub.edges(i), chains[i].query.seq)
                 continue
             pending.append((idxs, dispatch_bucket(built, [qs[i] for i in idxs], v_pad,
                                                   l_pad, self.device)))
-        return (n, out, pending, handles, handle_off, lbase)
+        return (n, out, pending, sub)
 
     def _finish_chains(self, state):
         """Drain the device chunks and pair each result with its range
         handles, offsets rebased to untrimmed node coordinates."""
-        n, out, pending, handles, handle_off, lbase = state
+        n, out, pending, sub = state
         for idxs, ps in pending:
             for i, res in zip(idxs, kernel_finish_all(ps)):
                 out[i] = res
-        res_handles = []
         for i in range(n):
-            res = out[i]
-            lb = lbase[handle_off[i] : handle_off[i + 1]]
-            if res.node_path and lb.any():
-                res.path_start_offset += int(lb[res.node_path[0]])
-                res.path_end_offset += int(lb[res.node_path[-1]])
-            res_handles.append((res, handles[handle_off[i] : handle_off[i + 1]].tolist()))
-        return res_handles
+            sub.rebase(i, out[i])
+        return [(out[i], sub.handles(i)) for i in range(n)]
+
+
+class _Subgraphs:
+    """The native extractor's flat output for a list of chains: chain i
+    owns handles [handle_off[i], handle_off[i+1]), their labels (corridor
+    flank trims applied, trim starts in ``lbase``) and its 0-based edges."""
+
+    def __init__(self, handle_off, handles, label_off, lbase, labels, edge_off, edges):
+        self.handle_off, self.handles_arr, self.label_off = handle_off, handles, label_off
+        self.lbase, self.labels, self.edge_off, self.edges_arr = lbase, labels, edge_off, edges
+
+    def nodes(self, i: int) -> List[str]:
+        lo = self.label_off
+        return [self.labels[lo[j] : lo[j + 1]].decode("ascii")
+                for j in range(self.handle_off[i], self.handle_off[i + 1])]
+
+    def edges(self, i: int) -> List[Tuple[int, int]]:
+        return [(int(a), int(b)) for a, b in self.edges_arr[self.edge_off[i] : self.edge_off[i + 1]]]
+
+    def handles(self, i: int) -> List[int]:
+        return self.handles_arr[self.handle_off[i] : self.handle_off[i + 1]].tolist()
+
+    def rebase(self, i: int, res) -> None:
+        """Node offsets of a result to untrimmed node coordinates: a
+        corridor flank trim cuts the front of its node's label."""
+        lb = self.lbase[self.handle_off[i] : self.handle_off[i + 1]]
+        if res.node_path and lb.any():
+            res.path_start_offset += int(lb[res.node_path[0]])
+            res.path_end_offset += int(lb[res.node_path[-1]])

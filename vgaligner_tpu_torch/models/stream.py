@@ -5,8 +5,11 @@ input order, with batch N's device POA (launched by begin_alignments)
 and its drain on a worker thread overlapping the host mapping of batch
 N+1.  The drain is the ``.cpu()`` copy of each chunk's outputs, which
 waits for the device with the GIL released.  Map-only streams pipeline
-the map's own begin/finish halves the same way.  Records reach the
-callbacks batch by batch in input order, identical to the unbatched path.
+the map's own begin/finish halves the same way.  The rspoa engine aligns
+inside begin_alignments and its finish only hands the result back, as
+in the JAX package, so its batches pipeline the emission alone.  Records
+reach the callbacks batch by batch in input order, identical to the
+unbatched path.
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ the global best proposed score.
     (kernels/csrc/chain_dp.cu) on a CUDA tensor and runs
     ``chain_dp_plain`` on a CPU tensor;
   * exact mode: f64 with Rust's round-half-away to 3 decimals and a
-    true IEEE divide by 1000 (``chain_dp_exact_plain``).  It has no CUDA
-    kernel yet (ROADMAP B5); on CUDA it raises.
+    true IEEE divide by 1000 over the host's f64 gap table.
+    ``chain_dp_exact`` launches the CUDA kernel
+    (kernels/csrc/chain_dp_exact.cu) on a CUDA tensor and runs
+    ``chain_dp_exact_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -169,23 +171,24 @@ def chain_dp_plain(qb, tb, te, valid, seed_length: int, bandwidth: int, max_gap:
 
 def chain_dp_exact_plain(qb, tb, te, valid, seed_length: int, bandwidth: int,
                          gap_table: np.ndarray):
-    """Plain exact-mode (f64) DP over sorted anchors; no CUDA kernel."""
-    if qb.device.type != "cpu":
-        raise NotImplementedError(
-            "exact-precision chaining has no CUDA kernel yet (ROADMAP B5); "
-            "use --precision fast on cuda"
-        )
+    """Plain twin of the exact-mode (f64) DP over sorted anchors, on
+    ``qb``'s device.  qb int32/int64, tb/te int64 [B, A], valid bool ->
+    (f [B, A] f64, pred [B, A] int32, curr_max [B] f64).  The divide by
+    1000 takes a tensor on the data's device: PyTorch turns a division
+    of a CUDA tensor by a CPU scalar into a multiply by its reciprocal,
+    which is not the IEEE divide."""
     B, A = qb.shape
+    dev = qb.device
     max_gap = len(gap_table) - 1
-    table = torch.from_numpy(np.asarray(gap_table, dtype=np.float64))
+    table = torch.from_numpy(np.asarray(gap_table, dtype=np.float64)).to(dev)
     qb, tb, te = qb.to(torch.int64), tb.to(torch.int64), te.to(torch.int64)
     k_f = float(seed_length)
-    thousand = torch.tensor(1000.0, dtype=torch.float64)
-    fpad = torch.full((B, bandwidth + A), NEG, dtype=torch.float64)
+    thousand = torch.tensor(1000.0, dtype=torch.float64, device=dev)
+    fpad = torch.full((B, bandwidth + A), NEG, dtype=torch.float64, device=dev)
     fpad[:, bandwidth:] = k_f
-    pred = torch.full((B, A), -1, dtype=torch.int32)
-    cmax = torch.zeros(B, dtype=torch.float64)
-    r_iota = torch.arange(bandwidth, dtype=torch.int32)
+    pred = torch.full((B, A), -1, dtype=torch.int32, device=dev)
+    cmax = torch.zeros(B, dtype=torch.float64, device=dev)
+    r_iota = torch.arange(bandwidth, dtype=torch.int32, device=dev)
     step = max(1, _PAIR_ROWS // max(B * bandwidth, 1))
     for i0 in range(0, A, step):
         i1 = min(A, i0 + step)
@@ -231,6 +234,36 @@ def chain_dp(qb, tb, te, valid, seed_length: int, bandwidth: int, max_gap: int):
     return f, pred, cmax
 
 
+def chain_dp_exact(qb, tb, te, valid, seed_length: int, bandwidth: int,
+                   gap_table: np.ndarray):
+    """Exact-mode DP over sorted anchors: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors.  qb int32, tb/te int64
+    [B, A], valid bool; the f64 gap table is uploaded as it is."""
+    if qb.device.type == "cpu":
+        return chain_dp_exact_plain(qb, tb, te, valid, seed_length, bandwidth, gap_table)
+    B, A = qb.shape
+    for name, t, dt in (("qb", qb, torch.int32), ("tb", tb, torch.int64),
+                        ("te", te, torch.int64), ("valid", valid, torch.bool)):
+        if t.dtype != dt or t.shape != (B, A):
+            raise ValueError(f"chain_dp_exact: {name} must be {dt} [{B}, {A}]")
+    kernels.require_cuda("chain_dp_exact", qb, tb, te, valid)
+    dev = qb.device
+    table = torch.from_numpy(np.ascontiguousarray(gap_table, dtype=np.float64)).to(dev)
+    f = torch.empty((B, A), dtype=torch.float64, device=dev)
+    pred = torch.empty((B, A), dtype=torch.int32, device=dev)
+    cmax = torch.empty(B, dtype=torch.float64, device=dev)
+    so = kernels.lib()
+    kernels.LAUNCHES["chain_dp_exact"] += 1
+    kernels.check(
+        so.vg_chain_dp_exact(qb.data_ptr(), tb.data_ptr(), te.data_ptr(), valid.data_ptr(),
+                             table.data_ptr(), B, A, seed_length, bandwidth,
+                             len(gap_table) - 1, f.data_ptr(), pred.data_ptr(),
+                             cmax.data_ptr(), kernels.stream_ptr(dev)),
+        "chain_dp_exact",
+    )
+    return f, pred, cmax
+
+
 def chain_scores(qb, tb, te, valid, gap_table: np.ndarray, seed_length: int,
                  bandwidth: int = 50, precision: str = "exact") -> ChainScores:
     """Batched chaining DP over an anchor batch (generation order)."""
@@ -240,8 +273,8 @@ def chain_scores(qb, tb, te, valid, gap_table: np.ndarray, seed_length: int,
                                  te_s.to(torch.int32).contiguous(), valid_s.contiguous(),
                                  seed_length, bandwidth, len(gap_table) - 1)
     elif precision == "exact":
-        f, pred, cmax = chain_dp_exact_plain(qb_s, tb_s, te_s, valid_s, seed_length,
-                                             bandwidth, gap_table)
+        f, pred, cmax = chain_dp_exact(qb_s, tb_s, te_s, valid_s.contiguous(), seed_length,
+                                       bandwidth, gap_table)
     else:
         raise ValueError(f"unknown precision {precision!r}")
     return ChainScores(order=order, qb=qb_s, tb=tb_s, te=te_s, valid=valid_s,

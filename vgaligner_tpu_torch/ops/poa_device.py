@@ -1,13 +1,20 @@
-"""Batched global POA on the device: plain twins, kernel wrappers, and
-the dispatch/finish pair around them.
+"""Batched POA on the device: plain twins, kernel wrappers, and the
+dispatch/finish code around them.
 
-Counterpart of the slice of ``vgaligner_tpu/ops/poa_device.py`` that the
-``map -p abpoa --also-align`` path runs.  Problem arrays come from the
-native builder; each ladder-padded chunk runs the POA DP
-(``poa_dp``: kernels/csrc/poa_dp.cu on CUDA, ``poa_dp_plain`` on the
-CPU) and the traceback (``poa_traceback``: kernels/csrc/poa_traceback.cu
-or ``poa_traceback_plain``); each chunk's tape comes back sliced to its
-longest walk and the native runtime decodes it into cigar/cs/node paths.
+Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
+
+  * global (abPOA): problem arrays come from the native builder; each
+    ladder-padded chunk runs the POA DP (``poa_dp``:
+    kernels/csrc/poa_dp.cu on CUDA, ``poa_dp_plain`` on the CPU) and the
+    traceback (``poa_traceback``: kernels/csrc/poa_traceback.cu or
+    ``poa_traceback_plain``); each chunk's tape comes back sliced to its
+    longest walk and the native runtime decodes it into cigar/cs/node
+    paths.  ``poa_global_kernel`` runs the same DP under the lane-padded
+    contract of the JAX package's Pallas kernel ``poa_dp_pallas``.
+  * local gapless (rspoa): ``align_local_batch`` builds problems with
+    ``prepare_problem``, runs ``poa_local`` (kernels/csrc/poa_local.cu,
+    or ``poa_local_plain``) per (V, L) bucket and decodes each tape
+    through the shared ``ops/poa.py::_finish_result``.
 
 Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 -4, gaps 4+2g and 24+g).  Decision bits per cell (int32):
@@ -18,7 +25,7 @@ Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +33,8 @@ import torch
 from .. import kernels
 from .._shared import require_native
 from .._shared.native import finish_tapes_native
-from .._shared.ops.poa import GAP_EXT1, GAP_EXT2, GAP_OPEN1, GAP_OPEN2, MATCH, MISMATCH
+from .._shared.ops.poa import (GAP_EXT1, GAP_EXT2, GAP_OPEN1, GAP_OPEN2, MATCH, MISMATCH,
+                               BaseGraph)
 
 NEGF = np.float32(-1.0e9)
 P_MAX = 8  # predecessor slots per vertex (fan-in above this goes to the host)
@@ -286,8 +294,9 @@ def poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row):
     for t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"poa_dp: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
-    if P not in (2, 4, 8) or W % 32 or W > 1024:
-        raise ValueError(f"poa_dp: unsupported P={P} or W={W} (P in 2/4/8, W % 32 == 0, <= 1024)")
+    if P not in (2, 4, 8):
+        raise ValueError(f"poa_dp: unsupported P={P} (2/4/8)")
+    kernels.check_row_width("poa_dp", W)
     kernels.require_cuda("poa_dp", vcodes, vpred, is_sink, nv, q, nq, init_row)
     dev = vcodes.device
     S = torch.empty((B, V + 1, 3 * W), dtype=torch.float32, device=dev)
@@ -393,6 +402,34 @@ def poa_traceback(tbits, vpred, best_sink, nq):
     return tape, tlen
 
 
+def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
+    """One batch of global POA problems, DP + traceback, under the
+    contract of the JAX package's VMEM-resident Pallas DP (the
+    ``use_pallas`` route of its ``poa_global_kernel``): the row is padded
+    to l_w = ceil((L+1)/128)*128 columns, the query with code 4 and
+    ``init_row`` with NEGF, and the traceback walks the l_w-wide bits.
+
+    Same arguments as ``poa_dp`` with q [B, L] and init_row [L+1] ->
+    (score [B] f32, tape [B, V+l_w+1] int32, tlen [B] int32).  That DP is
+    ``poa_dp``'s at this width, so both routes run one kernel."""
+    q_w, init_w = lane_pad(q, init_row)
+    score, best_sink, tbits = poa_dp(vcodes, vpred, is_sink, nv, q_w, nq, init_w)
+    tape, tlen = poa_traceback(tbits, vpred, best_sink, nq)
+    return score, tape, tlen
+
+
+def lane_pad(q, init_row):
+    """(q [B, l_w-1] padded with code 4, init_row [l_w] padded with NEGF),
+    l_w = ceil((L+1)/128)*128: the row width of ``poa_global_kernel``."""
+    B, L = q.shape
+    l_w = ((L + 1 + 127) // 128) * 128
+    q_w = torch.full((B, l_w - 1), 4, dtype=q.dtype, device=q.device)
+    q_w[:, :L] = q
+    init_w = torch.full((l_w,), float(NEGF), dtype=torch.float32, device=q.device)
+    init_w[: L + 1] = init_row
+    return q_w, init_w
+
+
 # ---------------------------------------------------------------------------
 # dispatch / finish
 
@@ -460,3 +497,220 @@ def dispatch_bucket(built, qs, v_pad: int, l_pad: int, device: torch.device) -> 
     """Dispatch every chunk of one (v_pad, l_pad) bucket."""
     return [kernel_dispatch(chunk, cqs, v_pad, l_pad, device)
             for chunk, cqs in _iter_chunks(built, qs, v_pad, l_pad)]
+
+
+# ---------------------------------------------------------------------------
+# local gapless POA (the rspoa engine)
+
+class PoaProblem(NamedTuple):
+    """One padded POA problem (host side)."""
+
+    vcodes: np.ndarray  # int8 [V]
+    vpred: np.ndarray  # int32 [V, P_MAX] predecessor vertex ids, -1 pad/virtual
+    is_sink: np.ndarray  # bool [V]
+    nv: int
+    q: np.ndarray  # int8 [L]
+    nq: int
+
+
+def prepare_problem(bg: BaseGraph, qcodes: np.ndarray, v_pad: int, l_pad: int) -> PoaProblem:
+    """One base graph and query padded to (v_pad, l_pad); a vertex with
+    more than P_MAX predecessors raises ValueError, as in the JAX package
+    (its rspoa route has no host fallback for it)."""
+    V = len(bg.codes)
+    if V > v_pad or len(qcodes) > l_pad:
+        raise ValueError("problem exceeds pad")
+    vcodes = np.full(v_pad, 4, dtype=np.int8)
+    vcodes[:V] = bg.codes
+    vpred = np.full((v_pad, P_MAX), -1, dtype=np.int32)
+    for v, ps in enumerate(bg.preds):
+        if len(ps) > P_MAX:
+            raise ValueError(f"vertex fan-in {len(ps)} exceeds {P_MAX}")
+        vpred[v, : len(ps)] = ps
+    is_sink = np.zeros(v_pad, dtype=bool)
+    is_sink[:V] = bg.is_sink
+    q = np.full(l_pad, 4, dtype=np.int8)
+    q[: len(qcodes)] = qcodes
+    return PoaProblem(vcodes, vpred, is_sink, V, q, len(qcodes))
+
+
+def poa_local_plain(vcodes, vpred, nv, q, nq):
+    """Plain twin of the local gapless DP + traceback
+    (``poa_local_kernel``), vectorised over problems.
+
+    vcodes [B,V] int8, vpred [B,V,P] int32, nv [B] int32, q [B,L] int8,
+    nq [B] (unused, as in the JAX version: padding code 4 always
+    mismatches) -> (best [B] f32, tape [B, L+1] int32, tlen [B] int32,
+    qend [B] int32).  The vertex loop runs to the batch max nv."""
+    B, V = vcodes.shape
+    L = q.shape[1]
+    P = vpred.shape[-1]
+    W = L + 1
+    dev = vcodes.device
+    f32 = torch.float32
+    H = torch.zeros((B, V + 1, W), dtype=f32, device=dev)  # row V: virtual 0s
+    cells = torch.zeros((B, V, W), dtype=torch.int32, device=dev)  # slot | pos << 4
+    p_iota = torch.arange(P, dtype=torch.int32, device=dev)[None, :, None]
+    j_iota = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    bidx = torch.arange(B, device=dev)
+    qi = q.to(torch.int32)
+    best = torch.zeros(B, dtype=f32, device=dev)
+    bv = torch.zeros(B, dtype=torch.int32, device=dev)
+    bj = torch.zeros(B, dtype=torch.int32, device=dev)
+    nv_max = int(nv.max()) if B else 0
+    for v in range(nv_max):
+        preds = vpred[:, v, :].to(torch.int64)
+        idx = torch.where(preds >= 0, preds, V)
+        Hp = H[bidx[:, None], idx]  # [B, P, W]; dead slots read the virtual 0 row
+        live = (preds >= 0)[:, :, None]
+        cand = torch.zeros((B, P, W), dtype=f32, device=dev)
+        cand[:, :, 1:] = Hp[:, :, :-1]
+        cand = torch.where(live, cand, 0.0)
+        m_best = cand.max(dim=1).values.clamp_min(0.0)
+        # first live slot achieving the max, only when max > 0
+        slot = torch.where((cand == m_best[:, None, :]) & live, p_iota, P).min(dim=1).values
+        slot = torch.where(m_best > 0.0, slot, _VIRT_SLOT)
+        slot = torch.where(slot >= P, _VIRT_SLOT, slot)
+        vcode = vcodes[:, v].to(torch.int32)[:, None]
+        sub = torch.where(qi == vcode, float(MATCH), float(MISMATCH))
+        sub = torch.where((qi >= 4) | (vcode >= 4), float(MISMATCH), sub).to(f32)
+        row = torch.zeros((B, W), dtype=f32, device=dev)
+        row[:, 1:] = (m_best[:, 1:] + sub).clamp_min(0.0)
+        cells[:, v] = slot.to(torch.int32) | ((row > 0.0).to(torch.int32) << 4)
+
+        m = row.max(dim=1).values
+        jstar = torch.where(row == m[:, None], j_iota, W).min(dim=1).values  # first max
+        in_range = v < nv
+        better = (m > best) & in_range
+        best = torch.where(better, m, best)
+        bv = torch.where(better, v, bv)
+        bj = torch.where(better, jstar, bj)
+        H[:, v] = torch.where(in_range[:, None], row, 0.0)
+
+    # traceback: matches only, until the zero floor (or j == 0)
+    tape = torch.full((B, W), _END_FILL, dtype=torch.int32, device=dev)
+    v = bv.to(torch.int64)
+    j = bj.to(torch.int64)
+    for t in range(W):
+        vc = v.clamp(0, V - 1)
+        bits = cells[bidx, vc, j.clamp(0, W - 1)]
+        alive = (v >= 0) & (j > 0) & ((bits >> 4) > 0)
+        if not bool(alive.any()):
+            break  # a walk that stopped stays stopped
+        nxt = torch.where((bits & 15) == _VIRT_SLOT, -2,
+                          vpred[bidx, vc, (bits & 15).clamp_max(P - 1)].to(torch.int64))
+        tape[:, t] = torch.where(alive, OP_M | ((v + 2) << 2), _END_FILL).to(torch.int32)
+        v = torch.where(alive, nxt, v)
+        j = torch.where(alive, j - 1, j)
+    tlen = ((tape & 3) != OP_END).sum(dim=1).to(torch.int32)
+    return best, tape, tlen, bj
+
+
+def poa_local(vcodes, vpred, nv, q, nq):
+    """Local gapless DP + traceback: the CUDA kernel for CUDA tensors,
+    the plain twin for CPU tensors.  Same arguments and outputs as
+    ``poa_local_plain``."""
+    if vcodes.device.type == "cpu":
+        return poa_local_plain(vcodes, vpred, nv, q, nq)
+    B, V = vcodes.shape
+    L = q.shape[1]
+    P = vpred.shape[-1]
+    W = L + 1
+    checks = ((vcodes, torch.int8, (B, V)), (vpred, torch.int32, (B, V, P)),
+              (nv, torch.int32, (B,)), (q, torch.int8, (B, L)))
+    for t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"poa_local: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
+    if P not in (2, 4, 8):
+        raise ValueError(f"poa_local: unsupported P={P} (2/4/8)")
+    kernels.check_row_width("poa_local", W)
+    kernels.require_cuda("poa_local", vcodes, vpred, nv, q)
+    dev = vcodes.device
+    H = torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev)
+    cells = torch.zeros((B, V, W), dtype=torch.uint8, device=dev)
+    best = torch.empty(B, dtype=torch.float32, device=dev)
+    tape = torch.empty((B, W), dtype=torch.int32, device=dev)
+    tlen = torch.empty(B, dtype=torch.int32, device=dev)
+    qend = torch.empty(B, dtype=torch.int32, device=dev)
+    so = kernels.lib()
+    kernels.LAUNCHES["poa_local"] += 1
+    kernels.check(
+        so.vg_poa_local(vcodes.data_ptr(), vpred.data_ptr(), nv.data_ptr(), q.data_ptr(),
+                        B, V, P, L, H.data_ptr(), cells.data_ptr(), best.data_ptr(),
+                        tape.data_ptr(), tlen.data_ptr(), qend.data_ptr(),
+                        kernels.stream_ptr(dev)),
+        "poa_local",
+    )
+    return best, tape, tlen, qend
+
+
+def align_local_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int, int]], str]],
+                      device: torch.device) -> list:
+    """Local gapless alignment (rspoa engine) of (nodes, edges, query)
+    problems on ``device``: bucketed by (pow2 V >= 256, query ladder),
+    one ``poa_local`` batch per bucket; subgraphs above 8,192 base
+    vertices go to the shared host oracle.  Equal to the JAX package's
+    ``align_local_batch``."""
+    from .._shared.ops.poa import align_local_no_gap_host, build_base_graph
+    from .._shared.utils.dna import encode_seq
+
+    qs_all = [encode_seq(q) for _, _, q in problems]
+    bgs_all = [build_base_graph(n, e) for n, e, _ in problems]
+    buckets: dict = {}
+    out = [None] * len(problems)
+    for i, (bg, q) in enumerate(zip(bgs_all, qs_all)):
+        if len(bg.codes) > 8192:
+            out[i] = align_local_no_gap_host(*problems[i])
+            continue
+        key = (_next_pow2(max(len(bg.codes), 256)), _l_pad_for(len(q)))
+        buckets.setdefault(key, []).append(i)
+    # launch every bucket, then drain them in order
+    pend = [(idxs, _dispatch_local_bucket([bgs_all[i] for i in idxs],
+                                          [qs_all[i] for i in idxs], v_pad, l_pad, device))
+            for (v_pad, l_pad), idxs in sorted(buckets.items())]
+    for idxs, (out_d, bgs, qs) in pend:
+        fetched = [x.cpu().numpy() for x in out_d]
+        for i, res in zip(idxs, _decode_local_bucket(bgs, qs, fetched)):
+            out[i] = res
+    return out
+
+
+def _dispatch_local_bucket(bgs, qs, v_pad: int, l_pad: int, device: torch.device):
+    """Pad one bucket to next_pow2(max(n, 4)) problems (copies of the
+    first) and launch ``poa_local`` on it."""
+    probs = [prepare_problem(bg, q, v_pad, l_pad) for bg, q in zip(bgs, qs)]
+    b_pad = _next_pow2(max(len(probs), 4))
+    while len(probs) < b_pad:
+        probs.append(probs[0])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    out_d = poa_local(
+        t(np.stack([p.vcodes for p in probs])),
+        t(_slice_preds(np.stack([p.vpred for p in probs]))),
+        t(np.asarray([p.nv for p in probs], dtype=np.int32)),
+        t(np.stack([p.q for p in probs])),
+        t(np.asarray([p.nq for p in probs], dtype=np.int32)),
+    )
+    return out_d, bgs, qs
+
+
+def _decode_local_bucket(bgs, qs, fetched):
+    """Tapes -> PoaResults: match or mismatch per step, query positions
+    ending at qend."""
+    from .._shared.ops.poa import _finish_result
+
+    best, tape, tlens, qends = fetched
+    ops, vids = unpack_tape(tape)
+    results = []
+    for i, (bg, q) in enumerate(zip(bgs, qs)):
+        t = int(tlens[i])
+        qe = int(qends[i])
+        qs_ = qe - t
+        triples = []
+        qpos = qs_
+        for v in vids[i][:t][::-1]:
+            kind = "M" if v >= 0 and q[qpos] == bg.codes[v] else "X"
+            triples.append((kind, int(v), qpos))
+            qpos += 1
+        results.append(_finish_result(bg, q, triples, int(best[i]), qs_, qe))
+    return results
