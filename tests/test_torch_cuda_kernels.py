@@ -80,6 +80,41 @@ def test_poa_kernels_wide_rows_match_plain(cuda_device, W):
     assert torch.equal(tl.cpu(), wtl) and torch.equal(tape.cpu(), wtape)
 
 
+def _fused_matches_plain(dev, arrs):
+    """poa_dp_tb's kernel against poa_dp_plain + poa_traceback_plain on
+    the same CUDA tensors, bit for bit; returns n_backing."""
+    W = arrs[4].shape[1] + 1
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(W - 1)).to(dev)
+    before = PD.kernels.LAUNCHES["poa_dp_tb"]
+    score, sink, tbits, tape, tlen, n_backing = PD.poa_dp_tb(*t, init)
+    assert PD.kernels.LAUNCHES["poa_dp_tb"] == before + 1
+    ws, wk, wtb = PD.poa_dp_plain(*t, init)
+    wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
+    assert torch.equal(score, ws) and torch.equal(sink, wk)
+    for b, n in enumerate(arrs[3]):
+        assert torch.equal(tbits[b, :n], wtb[b, :n])
+    assert torch.equal(tlen, wtl) and torch.equal(tape, wtape)
+    assert torch.equal(n_backing, PD.backing_rows_plain(t[1], t[3]))
+    return n_backing.cpu()
+
+
+@pytest.mark.parametrize("P,W,V", [(2, 32, 96), (4, 64, 128), (2, 128, 256), (8, 128, 128),
+                                   (4, 256, 64), (8, 256, 256), (2, 128, 2048)])
+def test_poa_dp_tb_kernel_matches_plain(cuda_device, P, W, V):
+    """Far predecessors beyond the row ring, problems over the pin budget
+    (the backing store) and problems within the ring, nv < V."""
+    far = random_poa_batch(P * W + V, 12, V, P, W - 1, far_frac=0.3)
+    near = random_poa_batch(P * W + V + 1, 4, V, P, W - 1, far_frac=0.0)
+    n_backing = _fused_matches_plain(cuda_device, [np.concatenate(x) for x in zip(far, near)])
+    assert (n_backing[:12] > 0).any() and (n_backing[12:] == 0).all()
+
+
+def test_poa_dp_tb_kernel_main_shape(cuda_device):
+    """The main path's chunk shape: 1,024 problems x V 256 x W 128, P 2."""
+    _fused_matches_plain(cuda_device, random_poa_batch(7, 1024, 256, 2, 127))
+
+
 @pytest.mark.parametrize("P,W,V", [(2, 128, 256), (4, 256, 512), (8, 2048, 128)])
 def test_poa_local_kernel_matches_plain(cuda_device, P, W, V):
     vcodes, vpred, _sink, nv, q, nq = random_poa_batch(P * W + V, 16, V, P, W - 1)
@@ -115,9 +150,9 @@ def test_chain_exact_kernel_matches_plain(cuda_device, seed, B, A, bw, max_gap):
 
 
 def test_slice_on_the_card_matches_cpu(cuda_device, tmp_path):
-    from vgaligner_tpu_torch._shared.graph import graph_from_gfa
-    from vgaligner_tpu_torch._shared.index import Index
-    from vgaligner_tpu_torch._shared.io.fastx import QuerySequence
+    from vgaligner_tpu_torch.graph import graph_from_gfa
+    from vgaligner_tpu_torch.index import Index
+    from vgaligner_tpu_torch.io.fastx import QuerySequence
     from vgaligner_tpu_torch.models.mapper import Mapper
     from vgaligner_tpu_torch.models.poa_aligner import PoaAligner, PoaEngine
 
@@ -129,9 +164,13 @@ def test_slice_on_the_card_matches_cpu(cuda_device, tmp_path):
           enumerate(sample_reads(graph, 96, 100, sub_rate=0.02, n_rate=0.01))]
     for precision, engine in (("fast", PoaEngine.ABPOA), ("exact", PoaEngine.RSPOA)):
         out = []
+        PD.kernels.reset_launch_counts()
         for d in (cuda_device, torch.device("cpu")):
             m = Mapper(index, d, precision=precision)
             chains = m.map_reads(qs)
             alns = PoaAligner(index, d, engine=engine).best_alignments_for_queries(chains)
             out.append((m.chains_gaf_text(chains), "".join(a.to_string() for a in alns)))
         assert out[0] == out[1], (precision, engine)
+        launches = PD.kernels.launch_counts()
+        if engine == PoaEngine.ABPOA:  # 100 bp reads: rows of 128 columns, the fused kernel
+            assert launches["poa_dp_tb"] > 0 and launches["poa_dp"] == launches["poa_traceback"] == 0

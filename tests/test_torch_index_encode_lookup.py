@@ -15,8 +15,8 @@ from vgaligner_tpu.ops.encode import encode_reads_host as jax_encode
 from vgaligner_tpu.ops.encode import window_kmer_codes as jax_window
 from vgaligner_tpu.ops.lookup import lookup_and_materialize_anchors as jax_lookup
 
-from vgaligner_tpu_torch._shared.graph import graph_from_gfa
-from vgaligner_tpu_torch._shared.index import Index
+from vgaligner_tpu_torch.graph import graph_from_gfa
+from vgaligner_tpu_torch.index import Index
 from vgaligner_tpu_torch.index.device_index import device_index, from_numpy
 from vgaligner_tpu_torch.ops.encode import encode_reads_host, window_kmer_codes
 from vgaligner_tpu_torch.ops.lookup import lookup_and_materialize_anchors

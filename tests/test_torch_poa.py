@@ -1,4 +1,5 @@
-"""Port vs JAX package: the POA DP and traceback plain twins.
+"""Port vs JAX package: the POA DP and traceback plain twins, and the
+fused route ``poa_dp_tb`` (its CPU path).
 
 The JAX side is ``poa_dp_xla`` and ``traceback_batch`` on the CPU (the
 XLA twins tests/test_poa_pallas2.py holds the Pallas DP to).  Compared
@@ -51,7 +52,7 @@ def _graph_batch(seed, B, v_pad, l_pad):
             np.asarray([p.nq for p in probs], np.int32))
 
 
-def _compare(arrs, l_pad):
+def _jax_dp_traceback(arrs, l_pad):
     vcodes, vpred, is_sink, nv, q, nq = arrs
     init_row = PD.make_init_row(l_pad)
     np.testing.assert_array_equal(init_row, JPD.make_init_row(l_pad))
@@ -60,10 +61,19 @@ def _compare(arrs, l_pad):
         jnp.asarray(nv), jnp.asarray(q), jnp.asarray(nq), jnp.asarray(init_row)))
     jtape, jtl = jax.device_get(JPD.traceback_batch(
         jnp.asarray(jtb), jnp.asarray(vpred), jnp.asarray(jk), jnp.asarray(nq)))
+    return init_row, (js, jk, jtb, jtape, jtl)
+
+
+def _compare(arrs, l_pad, fused=False):
+    vcodes, vpred, is_sink, nv, q, nq = arrs
+    init_row, (js, jk, jtb, jtape, jtl) = _jax_dp_traceback(arrs, l_pad)
 
     t = [torch.from_numpy(a) for a in arrs]
-    s, k, tb = PD.poa_dp(*t, torch.from_numpy(init_row))
-    tape, tl = PD.poa_traceback(tb, t[1], k, t[5])
+    if fused:
+        s, k, tb, tape, tl, _nb = PD.poa_dp_tb(*t, torch.from_numpy(init_row))
+    else:
+        s, k, tb = PD.poa_dp(*t, torch.from_numpy(init_row))
+        tape, tl = PD.poa_traceback(tb, t[1], k, t[5])
     np.testing.assert_array_equal(s.numpy(), js)
     np.testing.assert_array_equal(k.numpy(), jk)
     for b in range(len(nv)):
@@ -95,6 +105,54 @@ def test_random_dag_batches_match_jax(P, W):
     assert (is_sink.sum(axis=1) > 1).all()
     assert (arrs[0] == 4).any() and (arrs[4] == 4).any()
     _compare(arrs, W - 1)
+
+
+def _backing_rows_by_hand(vpred, nv):
+    out = []
+    for b in range(len(nv)):
+        far = {int(p) for v in range(int(nv[b])) for p in vpred[b, v]
+               if 0 <= p < v - PD.TB_RING}
+        out.append(max(0, len(far) - PD.TB_PINS))
+    return np.asarray(out, np.int32)
+
+
+@pytest.mark.parametrize("P", [2, 4, 8])
+@pytest.mark.parametrize("W", [32, 128, 256])
+def test_fused_route_matches_jax(P, W):
+    """The fused DP + traceback route (its CPU path) against the JAX DP and
+    traceback_batch: nv < V, predecessors farther back than the kernel's
+    row ring, and problems with more far-referenced vertices than it pins
+    (its backing-store path), beside problems within the ring."""
+    V = 96 if W == 32 else 64
+    arrs = random_poa_batch(40 + P + W, 6, V, P, W - 1, far_frac=0.4)
+    near = random_poa_batch(41 + P + W, 3, V, P, W - 1, far_frac=0.0)
+    arrs = tuple(np.concatenate([a, n]) for a, n in zip(arrs, near))
+    nv, vpred = arrs[3], arrs[1]
+    assert (nv < V).any()
+    want_nb = _backing_rows_by_hand(vpred, nv)
+    assert (want_nb[:6] > 0).any() and (want_nb[6:] == 0).all()
+    _compare(arrs, W - 1, fused=True)
+    t = [torch.from_numpy(a) for a in arrs]
+    nb = PD.poa_dp_tb(*t, torch.from_numpy(PD.make_init_row(W - 1)))[5]
+    np.testing.assert_array_equal(nb.numpy(), want_nb)
+
+
+def test_fused_route_takes_rows_up_to_256():
+    assert PD.TB_WIDTHS == (32, 64, 128, 256)
+    calls = []
+    real_tb, real_dp = PD.poa_dp_tb, PD.poa_dp
+
+    def spy(name, fn):
+        return lambda *a: calls.append(name) or fn(*a)
+
+    PD.poa_dp_tb, PD.poa_dp = spy("tb", real_tb), spy("dp", real_dp)
+    try:
+        for W in (128, 256, 512):
+            arrs = [torch.from_numpy(a) for a in random_poa_batch(W, 2, 32, 2, W - 1)]
+            PD.dp_and_traceback(*arrs, torch.from_numpy(PD.make_init_row(W - 1)))
+    finally:
+        PD.poa_dp_tb, PD.poa_dp = real_tb, real_dp
+    assert calls == ["tb", "tb", "dp"]
 
 
 def test_slice_preds_matches_jax():

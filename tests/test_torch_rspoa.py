@@ -33,8 +33,8 @@ from vgaligner_tpu.index import Index as JaxIndex
 from vgaligner_tpu.ops import poa_device as JPD
 
 from vgaligner_tpu_torch import cli
-from vgaligner_tpu_torch._shared.graph import graph_from_gfa
-from vgaligner_tpu_torch._shared.io.fastx import QuerySequence
+from vgaligner_tpu_torch.graph import graph_from_gfa
+from vgaligner_tpu_torch.io.fastx import QuerySequence
 from vgaligner_tpu_torch.models.mapper import Mapper
 from vgaligner_tpu_torch.models.poa_aligner import PoaAligner, PoaEngine
 from vgaligner_tpu_torch.models.stream import stream_map_align
@@ -185,7 +185,7 @@ def test_stream_rspoa_matches_jax(world):
     want = "".join(a.to_string() for a in
                    JaxAligner(jidx, JaxEngine.RSPOA).best_alignments_for_queries(jchains))
 
-    from vgaligner_tpu_torch._shared.index import Index
+    from vgaligner_tpu_torch.index import Index
 
     pidx = Index.load_from_prefix(world["prefix"])
     pm = Mapper(pidx, CPU, bandwidth=50, max_gap=1000, precision="exact")

@@ -19,9 +19,9 @@ from vgaligner_tpu.models.mapper import Mapper as JaxMapper
 from vgaligner_tpu.models.poa_aligner import PoaAligner as JaxAligner
 from vgaligner_tpu.models.poa_aligner import PoaEngine as JaxEngine
 
-from vgaligner_tpu_torch._shared.graph import graph_from_gfa
-from vgaligner_tpu_torch._shared.index import Index
-from vgaligner_tpu_torch._shared.io.fastx import QuerySequence
+from vgaligner_tpu_torch.graph import graph_from_gfa
+from vgaligner_tpu_torch.index import Index
+from vgaligner_tpu_torch.io.fastx import QuerySequence
 from vgaligner_tpu_torch.models.mapper import Mapper
 from vgaligner_tpu_torch.models.poa_aligner import PoaAligner
 from vgaligner_tpu_torch.models.stream import stream_map_align

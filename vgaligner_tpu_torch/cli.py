@@ -92,8 +92,8 @@ def _strip_ext(path: str) -> str:
 
 
 def index_main(args) -> None:
-    from ._shared.graph import graph_from_gfa
-    from ._shared.index import Index
+    from .graph import graph_from_gfa
+    from .index import Index
 
     out_prefix = args.out_prefix or _strip_ext(args.input)
     Index.build(
@@ -121,9 +121,9 @@ def _refuse_unported(args) -> None:
 
 
 def map_main(args) -> None:
-    from ._shared.index import Index
-    from ._shared.io.fastx import read_seqs_from_file
-    from ._shared.io.resume import ResumableGafWriter
+    from .index import Index
+    from .io.fastx import read_seqs_from_file
+    from .io.resume import ResumableGafWriter
     from .device import resolve_device, resolve_precision
     from .models.mapper import Mapper
     from .models.poa_aligner import PoaAligner, PoaEngine
@@ -151,7 +151,7 @@ def map_main(args) -> None:
     if args.also_align:
         if not args.input_graph:
             sys.exit("--also-align requires -G/--graph (map.rs:155-159)")
-        from ._shared.graph import graph_from_gfa
+        from .graph import graph_from_gfa
 
         graph = graph_from_gfa(args.input_graph)
         aligner = PoaAligner(index, device, engine=PoaEngine(args.poa_aligner),
@@ -209,7 +209,7 @@ def map_main(args) -> None:
         log.info("Found %d alignments!", n_alignments)
         log.info("Alignments stored correctly in %s!", align_file)
         if args.also_validate:
-            from ._shared.io.validate import create_validation_records, \
+            from .io.validate import create_validation_records, \
                 write_validation_to_file
 
             records = create_validation_records(graph, alignments, queries)

@@ -1,7 +1,8 @@
 """Build, bind and count the port's CUDA kernels.
 
 The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
-traceback, local POA) are compiled by ``nvcc`` for ``sm_90a``, one
+traceback, the fused POA DP + traceback for rows up to 256 columns,
+local POA) are compiled by ``nvcc`` for ``sm_90a``, one
 process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes.  The build runs
 at first use, into ``vgaligner_tpu_torch/_build/``, keyed by a hash of
@@ -33,7 +34,7 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp.cu", "poa_traceback.cu",
-           "poa_local.cu")
+           "poa_dp_tb.cu", "poa_local.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -41,7 +42,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp": 0, "poa_traceback": 0,
-            "poa_local": 0, "chain_gap_cost": 0}
+            "poa_dp_tb": 0, "poa_local": 0, "chain_gap_cost": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -141,6 +142,10 @@ def lib() -> ctypes.CDLL:
         so.vg_poa_dp.restype = ci
         so.vg_poa_traceback.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 3
         so.vg_poa_traceback.restype = ci
+        so.vg_poa_dp_tb.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        so.vg_poa_dp_tb.restype = ci
+        so.vg_poa_dp_tb_occupancy.argtypes = [ci, ci, ci, vp]
+        so.vg_poa_dp_tb_occupancy.restype = ci
         so.vg_cuda_error_string.argtypes = [ci]
         so.vg_cuda_error_string.restype = ctypes.c_char_p
         _lib = so

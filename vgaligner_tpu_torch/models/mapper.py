@@ -25,17 +25,17 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .._shared import require_native
-from .._shared.io.fastx import QuerySequence
-from .._shared.io.gaf import GAFAlignment
-from .._shared.native import (
+from ..io.fastx import QuerySequence
+from ..io.gaf import GAFAlignment
+from ..native import (
     anchor_coords_native,
     backtrack_delta_native,
     chains_gaf_blob_native,
     count_anchors_native,
     map_read_chains_native,
+    require_native,
 )
-from .._shared.utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer
 from ..index.device_index import device_index
 from ..ops.chain import chain_scores, make_gap_cost_table
 from ..ops.encode import encode_reads_host, window_kmer_codes
@@ -112,7 +112,7 @@ def chain_dp_score(chain: Chain, max_gap: int) -> float:
     chain of a read it equals that read's curr_max."""
     if chain.is_placeholder or chain.n_anchors == 0:
         return -np.inf
-    from .._shared.models.host_pipeline import HAnchor, score_anchor
+    from .host_pipeline import HAnchor, score_anchor
 
     k = chain.k
     f = float(k)
@@ -184,7 +184,7 @@ class Mapper:
         the device; ``finish_map`` drains it."""
         if not self.both_strands:
             return (queries, None, self._begin_oriented(queries))
-        from .._shared.utils.dna import reverse_complement
+        from ..utils.dna import reverse_complement
 
         rc = [QuerySequence(name=q.name, seq=reverse_complement(q.seq)) for q in queries]
         return (queries, len(queries), self._begin_oriented(list(queries) + rc))

@@ -29,15 +29,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._shared import require_native
-from .._shared.graph.handlegraph import handle_id
-from .._shared.io.gaf import GAFAlignment
-from .._shared.native import (
+from ..graph.handlegraph import handle_id
+from ..io.gaf import GAFAlignment
+from ..native import (
     build_poa_batch_arrays,
     extract_subgraphs_native,
     poa_global_host_native,
+    require_native,
 )
-from .._shared.utils.dna import encode_seq
+from ..utils.dna import encode_seq
 from ..ops.poa_device import P_MAX, _l_pad_for, _next_pow2, align_local_batch, \
     dispatch_bucket, kernel_finish_all, padded_rows
 from .mapper import Chain
@@ -125,7 +125,7 @@ class PoaAligner:
     def trimmed_poa_score(cs: str) -> int:
         """Global score of the matched span of a cs string, leading and
         trailing deletion runs stripped."""
-        from .._shared.ops.poa import MATCH, MISMATCH, gap_cost
+        from ..ops.poa import MATCH, MISMATCH, gap_cost
 
         runs = []
         i = 5 if cs.startswith("cs:Z:") else 0
@@ -270,7 +270,7 @@ class PoaAligner:
         sub = self._extract(chains)
         if self.export_subgraphs and self.graph is not None:
             # every chain's subgraph, as the reference does (map.rs:164)
-            from .._shared.io.validate import create_subgraph_gfa, export_gfa
+            from ..io.validate import create_subgraph_gfa, export_gfa
 
             for i, chain in enumerate(chains):
                 export_gfa(
@@ -302,7 +302,7 @@ class PoaAligner:
             )
             if built is None:
                 # fan-in above P_MAX: the host oracle (rare)
-                from .._shared.ops.poa import align_global_host
+                from ..ops.poa import align_global_host
 
                 for i in idxs:
                     out[i] = align_global_host(sub.nodes(i), sub.edges(i), chains[i].query.seq)

@@ -17,8 +17,8 @@ from __future__ import annotations
 import threading
 from typing import Callable, List, Optional, Sequence
 
-from .._shared.io.fastx import QuerySequence
-from .._shared.io.gaf import GAFAlignment
+from ..io.fastx import QuerySequence
+from ..io.gaf import GAFAlignment
 from .mapper import Chain, Mapper
 from .poa_aligner import PoaAligner
 

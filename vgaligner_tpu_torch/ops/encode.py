@@ -12,7 +12,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .._shared.utils.dna import encode_seq
+from ..utils.dna import encode_seq
 
 
 def encode_reads_host(seqs: List[str], pad_to: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -4,17 +4,20 @@ dispatch/finish code around them.
 Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
 
   * global (abPOA): problem arrays come from the native builder; each
-    ladder-padded chunk runs the POA DP (``poa_dp``:
-    kernels/csrc/poa_dp.cu on CUDA, ``poa_dp_plain`` on the CPU) and the
-    traceback (``poa_traceback``: kernels/csrc/poa_traceback.cu or
-    ``poa_traceback_plain``); each chunk's tape comes back sliced to its
-    longest walk and the native runtime decodes it into cigar/cs/node
-    paths.  ``poa_global_kernel`` runs the same DP under the lane-padded
-    contract of the JAX package's Pallas kernel ``poa_dp_pallas``.
+    ladder-padded chunk runs the POA DP and its traceback.  Rows of up to
+    256 columns (reads up to 255 bp) take ``poa_dp_tb``, one CUDA kernel
+    for both (kernels/csrc/poa_dp_tb.cu); wider rows take ``poa_dp``
+    (kernels/csrc/poa_dp.cu) and then ``poa_traceback``
+    (kernels/csrc/poa_traceback.cu).  On the CPU every route runs the
+    plain twins ``poa_dp_plain`` and ``poa_traceback_plain``.  Each
+    chunk's tape comes back sliced to its longest walk and the native
+    runtime decodes it into cigar/cs/node paths.  ``poa_global_kernel``
+    runs the same DP under the lane-padded contract of the JAX package's
+    Pallas kernel ``poa_dp_pallas``.
   * local gapless (rspoa): ``align_local_batch`` builds problems with
     ``prepare_problem``, runs ``poa_local`` (kernels/csrc/poa_local.cu,
     or ``poa_local_plain``) per (V, L) bucket and decodes each tape
-    through the shared ``ops/poa.py::_finish_result``.
+    through the port's ``ops/poa.py::_finish_result``.
 
 Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 -4, gaps 4+2g and 24+g).  Decision bits per cell (int32):
@@ -25,16 +28,15 @@ Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import kernels
-from .._shared import require_native
-from .._shared.native import finish_tapes_native
-from .._shared.ops.poa import (GAP_EXT1, GAP_EXT2, GAP_OPEN1, GAP_OPEN2, MATCH, MISMATCH,
-                               BaseGraph)
+from ..native import finish_tapes_native, require_native
+from .poa import GAP_EXT1, GAP_EXT2, GAP_OPEN1, GAP_OPEN2, MATCH, MISMATCH, BaseGraph
 
 NEGF = np.float32(-1.0e9)
 P_MAX = 8  # predecessor slots per vertex (fan-in above this goes to the host)
@@ -276,28 +278,34 @@ def poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row):
     return best_score, best_sink, tbits
 
 
+def _check_dp_inputs(name, vcodes, vpred, is_sink, nv, q, nq, init_row):
+    """The POA DP's CUDA inputs as its kernels take them -> (B, V, P, L)."""
+    B, V = vcodes.shape
+    L = q.shape[1]
+    P = vpred.shape[-1]
+    checks = (
+        (vcodes, torch.int8, (B, V)), (vpred, torch.int32, (B, V, P)),
+        (is_sink, torch.uint8, (B, V)), (nv, torch.int32, (B,)),
+        (q, torch.int8, (B, L)), (nq, torch.int32, (B,)), (init_row, torch.float32, (L + 1,)),
+    )
+    for t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
+    if P not in (2, 4, 8):
+        raise ValueError(f"{name}: unsupported P={P} (2/4/8)")
+    kernels.require_cuda(name, vcodes, vpred, is_sink, nv, q, nq, init_row)
+    return B, V, P, L
+
+
 def poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row):
     """POA DP: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors.  Same arguments and outputs as ``poa_dp_plain`` (tbits rows
     at or past nv are unspecified)."""
     if vcodes.device.type == "cpu":
         return poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
-    B, V = vcodes.shape
-    L = q.shape[1]
-    P = vpred.shape[-1]
+    B, V, P, L = _check_dp_inputs("poa_dp", vcodes, vpred, is_sink, nv, q, nq, init_row)
     W = L + 1
-    checks = (
-        (vcodes, torch.int8, (B, V)), (vpred, torch.int32, (B, V, P)),
-        (is_sink, torch.uint8, (B, V)), (nv, torch.int32, (B,)),
-        (q, torch.int8, (B, L)), (nq, torch.int32, (B,)), (init_row, torch.float32, (W,)),
-    )
-    for t, dt, shape in checks:
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"poa_dp: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
-    if P not in (2, 4, 8):
-        raise ValueError(f"poa_dp: unsupported P={P} (2/4/8)")
     kernels.check_row_width("poa_dp", W)
-    kernels.require_cuda("poa_dp", vcodes, vpred, is_sink, nv, q, nq, init_row)
     dev = vcodes.device
     S = torch.empty((B, V + 1, 3 * W), dtype=torch.float32, device=dev)
     score = torch.empty(B, dtype=torch.float32, device=dev)
@@ -402,6 +410,92 @@ def poa_traceback(tbits, vpred, best_sink, nq):
     return tape, tlen
 
 
+# ---------------------------------------------------------------------------
+# POA DP and traceback in one kernel (rows up to 256 columns)
+
+TB_WIDTHS = (32, 64, 128, 256)  # W = 32 C, C = 1/2/4/8 columns a lane
+TB_RING, TB_PINS = 8, 4  # poa_dp_tb.cu's row ring and pinned far rows
+
+
+def far_vertices_plain(vpred, nv, ring: int = TB_RING):
+    """Distinct vertices per problem that some vertex v < nv reads from
+    more than ``ring`` rows back.  vpred [B,V,P], nv [B] -> [B] int32."""
+    B, V, _P = vpred.shape
+    v_ids = torch.arange(V, device=vpred.device)[None, :, None]
+    far = (vpred >= 0) & (vpred < v_ids - ring) & (v_ids < nv.to(torch.int64)[:, None, None])
+    marks = torch.zeros((B, V + 1), dtype=torch.int32, device=vpred.device)
+    marks.scatter_(1, torch.where(far, vpred.to(torch.int64), V).reshape(B, -1), 1)
+    return marks[:, :V].sum(dim=1).to(torch.int32)
+
+
+def backing_rows_plain(vpred, nv):
+    """Rows per problem that ``poa_dp_tb``'s kernel keeps in its global
+    backing store: the far vertices (``far_vertices_plain`` at TB_RING)
+    less the first TB_PINS of them, which get pinned shared-memory rows.
+    vpred [B,V,P], nv [B] -> [B] int32."""
+    return (far_vertices_plain(vpred, nv) - TB_PINS).clamp_min(0).to(torch.int32)
+
+
+def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row):
+    """POA DP and traceback: one CUDA kernel for CUDA tensors (rows of W
+    = L + 1 in TB_WIDTHS), ``poa_dp_plain`` then ``poa_traceback_plain``
+    for CPU tensors.  Same arguments as ``poa_dp`` -> (score, best_sink,
+    tbits, tape, tlen, n_backing): the first five as the two twins give
+    them (tbits rows at or past nv unspecified), and n_backing [B] int32
+    the rows each problem kept in the kernel's backing store
+    (``backing_rows_plain``)."""
+    if vcodes.device.type == "cpu":
+        score, best_sink, tbits = poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
+        tape, tlen = poa_traceback_plain(tbits, vpred, best_sink, nq)
+        return score, best_sink, tbits, tape, tlen, backing_rows_plain(vpred, nv)
+    B, V, P, L = _check_dp_inputs("poa_dp_tb", vcodes, vpred, is_sink, nv, q, nq, init_row)
+    W = L + 1
+    if W not in TB_WIDTHS:
+        raise ValueError(f"poa_dp_tb: unsupported row width W={W} {TB_WIDTHS}")
+    dev = vcodes.device
+    # never zeroed; only the rows of n_backing are written and read
+    backing = torch.empty((B, V, 3 * W), dtype=torch.float32, device=dev)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    best_sink = torch.empty(B, dtype=torch.int32, device=dev)
+    tbits = torch.empty((B, V, W), dtype=torch.int32, device=dev)
+    tape = torch.empty((B, V + W + 1), dtype=torch.int32, device=dev)
+    tlen = torch.empty(B, dtype=torch.int32, device=dev)
+    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    so = kernels.lib()
+    kernels.LAUNCHES["poa_dp_tb"] += 1
+    kernels.check(
+        so.vg_poa_dp_tb(vcodes.data_ptr(), vpred.data_ptr(), is_sink.data_ptr(), nv.data_ptr(),
+                        q.data_ptr(), nq.data_ptr(), init_row.data_ptr(), B, V, P, L,
+                        backing.data_ptr(), score.data_ptr(), best_sink.data_ptr(),
+                        tbits.data_ptr(), tape.data_ptr(), tlen.data_ptr(),
+                        n_backing.data_ptr(), kernels.stream_ptr(dev)),
+        "poa_dp_tb",
+    )
+    return score, best_sink, tbits, tape, tlen, n_backing
+
+
+def poa_dp_tb_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
+    """(problems a block holds, blocks an SM keeps resident, dynamic
+    shared memory per block in bytes) of ``poa_dp_tb``'s kernel at this
+    shape, from the CUDA occupancy calculator.  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.lib().vg_poa_dp_tb_occupancy(P, W, V, ctypes.addressof(out)),
+                  "poa_dp_tb_occupancy")
+    return out[0], out[1], out[2]
+
+
+def dp_and_traceback(vcodes, vpred, is_sink, nv, q, nq, init_row):
+    """(score, tape, tlen) of one batch: ``poa_dp_tb`` for rows of W in
+    TB_WIDTHS, else ``poa_dp`` then ``poa_traceback``."""
+    if q.shape[1] + 1 in TB_WIDTHS:
+        score, _sink, _tbits, tape, tlen, _nb = poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq,
+                                                          init_row)
+        return score, tape, tlen
+    score, best_sink, tbits = poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row)
+    tape, tlen = poa_traceback(tbits, vpred, best_sink, nq)
+    return score, tape, tlen
+
+
 def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
     """One batch of global POA problems, DP + traceback, under the
     contract of the JAX package's VMEM-resident Pallas DP (the
@@ -411,11 +505,10 @@ def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
 
     Same arguments as ``poa_dp`` with q [B, L] and init_row [L+1] ->
     (score [B] f32, tape [B, V+l_w+1] int32, tlen [B] int32).  That DP is
-    ``poa_dp``'s at this width, so both routes run one kernel."""
+    ``poa_dp``'s at this width, so it takes the route ``dp_and_traceback``
+    gives that width."""
     q_w, init_w = lane_pad(q, init_row)
-    score, best_sink, tbits = poa_dp(vcodes, vpred, is_sink, nv, q_w, nq, init_w)
-    tape, tlen = poa_traceback(tbits, vpred, best_sink, nq)
-    return score, tape, tlen
+    return dp_and_traceback(vcodes, vpred, is_sink, nv, q_w, nq, init_w)
 
 
 def lane_pad(q, init_row):
@@ -434,22 +527,19 @@ def lane_pad(q, init_row):
 # dispatch / finish
 
 def kernel_dispatch(chunk, qs, v_pad: int, l_pad: int, device: torch.device):
-    """Launch DP + traceback on one ladder-padded chunk without waiting
-    for the device.  Returns the pending state for ``kernel_finish_all``."""
+    """Launch DP + traceback (``dp_and_traceback``) on one ladder-padded
+    chunk without waiting for the device.  Returns the pending state for ``kernel_finish_all``."""
     vcodes, vpred, is_sink, nv, node_of, off_in = chunk
     n_real = len(qs)
     b_pad = vcodes.shape[0]
     q_pad, nq = _pad_queries(qs, b_pad, l_pad)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    vpred_d = t(_slice_preds(vpred, n_real).astype(np.int32))
-    nq_d = t(nq)
-    score, best_sink, tbits = poa_dp(
-        t(vcodes.astype(np.int8, copy=False)), vpred_d,
+    out = dp_and_traceback(
+        t(vcodes.astype(np.int8, copy=False)), t(_slice_preds(vpred, n_real).astype(np.int32)),
         t(is_sink.astype(np.uint8, copy=False)), t(nv.astype(np.int32, copy=False)),
-        t(q_pad), nq_d, t(make_init_row(l_pad)),
+        t(q_pad), t(nq), t(make_init_row(l_pad)),
     )
-    tape, tlen = poa_traceback(tbits, vpred_d, best_sink, nq_d)
-    return (score, tape, tlen), vcodes, node_of, off_in, q_pad, v_pad, n_real, qs
+    return out, vcodes, node_of, off_in, q_pad, v_pad, n_real, qs
 
 
 def kernel_finish_all(pendings) -> List:
@@ -468,7 +558,7 @@ def kernel_finish_all(pendings) -> List:
 
 
 def _decode_finished(pending, fetched):
-    from .._shared.ops.poa import PoaResult
+    from .poa import PoaResult
 
     require_native()
     _d, vcodes, node_of, off_in, q_pad, v_pad, n_real, qs = pending
@@ -652,8 +742,8 @@ def align_local_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int
     one ``poa_local`` batch per bucket; subgraphs above 8,192 base
     vertices go to the shared host oracle.  Equal to the JAX package's
     ``align_local_batch``."""
-    from .._shared.ops.poa import align_local_no_gap_host, build_base_graph
-    from .._shared.utils.dna import encode_seq
+    from .poa import align_local_no_gap_host, build_base_graph
+    from ..utils.dna import encode_seq
 
     qs_all = [encode_seq(q) for _, _, q in problems]
     bgs_all = [build_base_graph(n, e) for n, e, _ in problems]
@@ -697,7 +787,7 @@ def _dispatch_local_bucket(bgs, qs, v_pad: int, l_pad: int, device: torch.device
 def _decode_local_bucket(bgs, qs, fetched):
     """Tapes -> PoaResults: match or mismatch per step, query positions
     ending at qend."""
-    from .._shared.ops.poa import _finish_result
+    from .poa import _finish_result
 
     best, tape, tlens, qends = fetched
     ops, vids = unpack_tape(tape)

@@ -67,10 +67,10 @@ def _device_profile(run, device) -> dict:
 def main(argv=None) -> dict:
     import torch
 
-    from ._shared.graph import graph_from_gfa
-    from ._shared.index import Index
-    from ._shared.io.fastx import QuerySequence
-    from ._shared.utils.timing import PhaseTimer
+    from .graph import graph_from_gfa
+    from .index import Index
+    from .io.fastx import QuerySequence
+    from .utils.timing import PhaseTimer
     from .device import resolve_device
     from .models.mapper import Mapper
     from .models.poa_aligner import PoaAligner
