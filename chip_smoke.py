@@ -25,10 +25,20 @@ Phases, one line each; any failure raises and the exit code is not 0:
        the same CUDA tensors in turns (K2 + K3, K6, K6, K2 + K3); the
        lane-padded contract of the JAX package's VMEM-resident Pallas DP
        (poa_global_kernel, 1,024 x 256, L 100), which K6 now runs;
-       K4 local POA on random batches (P 2/4/8, W 128/256/2048, V
-       256/2048, problems with no positive cell and nv < V);
+       K4 local POA, one block a problem, on random batches (P 2/4/8, W
+       128/256/2048, V 256/2048, problems with no positive cell and
+       nv < V);
+       K7 local POA, one warp a problem, for rows up to 256 columns, on
+       P 2/4/8 x W 32/64/128/256 x V 64/256/2,048 batches with far
+       predecessors past its ring, problems over its pin budget (its
+       backing store), a predecessor at and past its vertex, nv far
+       below V and nv = 0; its ptxas registers and spills, and its
+       occupancy at the rspoa batch shape;
        K5 exact chaining DP on the real anchors at 4,096 x 256 and at
-       A = 16,384 and 65,536, beside K1's time at the same shape;
+       A = 16,384 and 65,536, then both of its paths (one divide a row;
+       one a pair, which a gap table with a negative entry or with scores
+       past its 2^41 bound takes) on the real anchors and on reads whose
+       valid anchors are scattered, timed at 4,096 x 256 beside K1;
   4. the main path through the CLI entry points: ``index -k 11`` and
      ``map -p abpoa -D -G --precision auto`` over 12,288 100 bp reads of
      a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes):
@@ -38,18 +48,26 @@ Phases, one line each; any failure raises and the exit code is not 0:
      reads again with ``--device cpu --precision fast`` (the plain
      twins), and both GAFs byte-identical for those reads;
   5. the rspoa path: ``map -p rspoa -D -G --precision exact`` over the
-     same reads: K4 and K5 launched, K1 not, no subgraph GFA written,
-     95 % of reads aligned, and the first 256 reads byte-identical to
-     ``--device cpu --precision exact``; K4 is then timed against its
-     twin on the largest batch that run gave it;
+     same reads: K7 and K5 launched, K4, K1 and K2 not, no subgraph GFA
+     written, 95 % of reads aligned, and the first 256 reads
+     byte-identical to ``--device cpu --precision exact``; on the
+     largest batch that run gave the local POA, K7 is held against its
+     twin and K4 and K7 are timed in turns (K4, K7, K7, K4), through
+     their wrappers and as the kernel alone on buffers allocated once;
   6. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
      K2 and K3, not K6, and a subgraph over 8,192 vertices on the native
-     host POA), card and ``--device cpu`` byte-identical.
+     host POA), card and ``--device cpu`` byte-identical; K2 and K3 are
+     then held against their twins and timed on the largest chunk that
+     run gave them; then ``map -p rspoa -D -G --precision exact`` over
+     the same reads (local POA rows over 256 columns: K4 and K5
+     launched, K7 not), the first LONG_CPU_SAMPLE reads byte-identical
+     to ``--device cpu``, and K4 held against its twin and timed on the
+     largest batch that run gave it.
 Every CLI phase resets the launch counters just before its run and
 reads them just after; a kernel's ``launches`` are those of the path
-that runs it (K1 and K6: abPOA; K4 and K5: rspoa; K2 and K3: long
-reads).
+that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K2 and K3: long
+reads, abPOA; K4: long reads, rspoa).
 
 Then one JSON line of per-kernel results and, last, the device line.
 Each kernel's ``bound_ms`` is the larger of the bytes it must move
@@ -79,6 +97,7 @@ N_READS = 12288
 READ_LEN = 100
 K = 11
 CPU_SAMPLE = 256
+LONG_CPU_SAMPLE = 16  # long reads re-run on the CPU plain path by the rspoa leg
 SEED_GRAPH = 0
 N_LONG = 64
 MAIN_CHUNKS = 12  # the abPOA path's POA chunks for N_READS reads (1,024 problems each)
@@ -93,8 +112,8 @@ _OPS = {
     "poa_cell": 40,  # K2/K6, a cell: h_pre, case, slots, scan terms, F1/F2, H, bits
     "poa_cell_slot": 10,  # K2/K6, a cell and slot: two opens, two extends, maxima, M
     "tb_step": 30,  # K3/K6, a walk step: decode, state machine, tape entry
-    "local_cell": 10,  # K4, a cell: substitution, floor, cell byte, best
-    "local_cell_slot": 3,  # K4, a cell and slot: max, compare, select
+    "local_cell": 10,  # K4/K7, a cell: substitution, floor, cell byte, best
+    "local_cell_slot": 3,  # K4/K7, a cell and slot: max, compare, select
 }
 
 
@@ -143,13 +162,15 @@ def _chain_work(args, exact, bandwidth=50):
 
 def _poa_dp_work(t):
     """Bytes and operations of the POA DP on batch t (vcodes, vpred,
-    is_sink, nv, q, nq): inputs once, score/best_sink, and tbits over the
-    rows below each problem's nv, which is all the DP computes."""
+    is_sink, nv, q, nq): the vertex rows below each problem's nv and the
+    other inputs once, score/best_sink, and tbits over those rows, which
+    is all the DP computes."""
     vcodes, vpred, _sink, nv, q, _nq = t
     B, V, P = vpred.shape
     W = q.shape[1] + 1
-    cells = int(nv.sum()) * W
-    nbytes = B * V * (2 + 4 * P) + B * (W - 1) + 8 * B + 4 * W + 8 * B + 4 * cells
+    rows = int(nv.sum())
+    cells = rows * W
+    nbytes = rows * (2 + 4 * P) + B * (W - 1) + 8 * B + 4 * W + 8 * B + 4 * cells
     return nbytes, cells * (_OPS["poa_cell"] + P * _OPS["poa_cell_slot"])
 
 
@@ -163,13 +184,15 @@ def _walk_work(tlen, B, V, W, reads_bits=True):
 
 
 def _local_work(args):
-    """Bytes and operations of the local POA: inputs once, the decision
-    byte of every cell below nv, the tape and the scalars."""
+    """Bytes and operations of the local POA: the vertex rows below each
+    problem's nv and the other inputs once, the decision byte of every
+    cell below nv, the tape and the scalars."""
     vcodes, vpred, nv, q, _nq = args
     B, V, P = vpred.shape
     W = q.shape[1] + 1
-    cells = int(nv.sum()) * W
-    nbytes = B * V * (1 + 4 * P) + B * (W - 1) + 8 * B + cells + 4 * B * W + 12 * B
+    rows = int(nv.sum())
+    cells = rows * W
+    nbytes = rows * (1 + 4 * P) + B * (W - 1) + 8 * B + cells + 4 * B * W + 12 * B
     return nbytes, cells * (_OPS["local_cell"] + P * _OPS["local_cell_slot"])
 
 
@@ -293,11 +316,24 @@ def phase_chain_kernels(index, reads, dev, results):
         print(f"[kernels] chain_dp and chain_dp_exact {label}: f/pred/curr_max equal, "
               f"f64 bit for bit ({int(args[3].sum())} valid anchors)")
     main = cases[0][1]
+    _exact_paths(main, table, errs_x, dev)
     fa = _fast_args(main)
     ms = _cuda_ms(lambda: C.chain_dp(*fa, K, 50, 1000), 10)
     plain_ms = _cuda_ms(lambda: C.chain_dp_plain(*fa, K, 50, 1000), 1)
     ms_x = _cuda_ms(lambda: C.chain_dp_exact(*main, K, 50, table), 10)
     plain_x = _cuda_ms(lambda: C.chain_dp_exact_plain(*main, K, 50, table), 1)
+    # a row's latency: the read with the most rows to its last valid anchor,
+    # alone, each kernel through its C entry (the wrapper's host time would
+    # exceed so short a launch)
+    A = main[0].shape[1]
+    last = torch.where(main[3], torch.arange(A, device=dev), -1).max(dim=1).values + 1
+    b = int(last.argmax())
+    one = [x[b : b + 1].contiguous() for x in main]
+    one_x = _cuda_ms(_chain_kernel_only(one, table, exact=True), 20)
+    one_k1 = _cuda_ms(_chain_kernel_only(_fast_args(one), table, exact=False), 20)
+    print(f"[kernels] the longest read alone, kernels alone ({int(last[b])} rows to its last "
+          f"valid anchor): K5 {one_x:.4f} ms ({one_x * 1e3 / int(last[b]):.3f} us a row), K1 "
+          f"{one_k1:.4f} ms ({A} rows, {one_k1 * 1e3 / A:.3f} us a row)")
     results["chain_dp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                                **_bound_keys(*_chain_work(fa, False), F32_OPS_PER_S))
     results["chain_dp_exact"] = dict(max_abs_err=max(errs_x), ms=ms_x, plain_ms=plain_x,
@@ -312,6 +348,79 @@ def phase_chain_kernels(index, reads, dev, results):
     if not torch.equal(g_dev, g_cpu) or not torch.equal(g_dev.to(torch.int64), g_f64):
         raise AssertionError("gap cost on the card differs from the CPU / f64 table")
     print("[kernels] gap cost g=0..1000: card == CPU plain == rounded f64 table")
+
+
+def _chain_kernel_only(args, table, exact):
+    """One launch of K5 (``exact``: one divide a row) or K1
+    through its C entry on outputs allocated once."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import chain as C
+
+    qb, tb, te, valid = args
+    B, A = qb.shape
+    dev = qb.device
+    wide = torch.float64 if exact else torch.int32
+    f = torch.empty((B, A), dtype=wide, device=dev)
+    pred = torch.empty((B, A), dtype=torch.int32, device=dev)
+    cmax = torch.empty(B, dtype=wide, device=dev)
+    so = kernels.lib()
+    ins = [qb.data_ptr(), tb.data_ptr(), te.data_ptr(), valid.data_ptr()]
+    outs = [f.data_ptr(), pred.data_ptr(), cmax.data_ptr(), kernels.stream_ptr(dev)]
+    max_gap = len(table) - 1
+    if exact:
+        tab = C._device_gap_table(table, K, dev)
+        ptrs = [*ins, tab.data_ptr(), B, A, K, 50, max_gap, 1, *outs]
+        return lambda: kernels.check(so.vg_chain_dp_exact(*ptrs), "chain_dp_exact")
+    ptrs = [*ins, B, A, K, 50, max_gap, *outs]
+    return lambda: kernels.check(so.vg_chain_dp(*ptrs), "chain_dp")
+
+
+def _scattered_anchors(seed, B, A, dev):
+    """Anchors in target-end order whose valid slots are scattered, not a
+    prefix, and a read with none."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    te = np.sort(rng.integers(0, 3 * A, (B, A)), axis=1).astype(np.int64) + K
+    qb = rng.integers(0, 90, (B, A)).astype(np.int32)
+    valid = rng.random((B, A)) < 0.5
+    valid[1] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return t(qb), t(te - K), t(te), t(valid)
+
+
+def _exact_paths(main, table, errs, dev):
+    """K5's paths bit for bit against the plain twin, on the main anchors
+    and on scattered valid anchors: one divide a row with the CLI's
+    table, one a pair with a table that has a negative entry, and one a
+    pair with a table whose scores pass the 2^41 bound."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import chain as C
+
+    names = ("f", "pred", "curr_max")
+    A = main[0].shape[1]
+    negative = table.copy()
+    negative[1::7] *= -1.0
+    big = -table * 1e8
+    if not C.exact_divide_once(A, K, table):
+        raise AssertionError("the main anchors do not take one divide a row")
+    if C.exact_divide_once(A, K, negative) or C.exact_divide_once(A, K, big):
+        raise AssertionError("a negative or too large gap table takes one divide a row")
+    scattered = _scattered_anchors(3, 64, 256, dev)
+    for label, args in (("main 4096x256", main), ("scattered valid 64x256", scattered)):
+        for path, tab in (("a row", table), ("a pair, negative table", negative),
+                          ("a pair, over the bound", big)):
+            want = C.chain_dp_exact_plain(*args, K, 50, tab)
+            _check_equal(f"chain_dp_exact {label} {path}", names,
+                         C.chain_dp_exact(*args, K, 50, tab), want, errs)
+    last = torch.where(main[3], torch.arange(A, device=dev), -1).max(dim=1).values + 1
+    print(f"[kernels] K5 paths (one divide a row; one a pair with a negative table and over "
+          f"the bound, max |curr_max| {float(want[2].abs().max()):.4g}) on the main anchors and "
+          f"on scattered valid anchors: f/pred/curr_max equal bit for bit; rows to the last "
+          f"valid anchor: mean {float(last.float().mean()):.2f} of {A}")
 
 
 def phase_poa_kernels(dev, results):
@@ -499,15 +608,80 @@ def phase_local_kernel(dev, results):
                 n = min(V, W - 1) // 2
                 q[1:, :n] = vcodes[1:, :n]  # long local matches
                 t = [torch.from_numpy(a).to(dev) for a in (vcodes, vpred, nv, q, nq)]
-                got = PD.poa_local(*t)
+                got = PD.poa_local_block(*t)
                 want = PD.poa_local_plain(*t)
                 _check_equal(f"poa_local P={P} W={W} V={V}", ("best", "tape", "tlen", "qend"),
                              got, want, errs)
                 if float(got[0][0]) != 0.0 or not bool((nv < V).any()):
                     raise AssertionError("poa_local batch lacks its edge cases")
-                print(f"[kernels] poa_local P={P} W={W} V={V} B=32: best/tape/tlen/qend equal "
-                      f"(max tlen {int(got[2].max())})")
+                print(f"[kernels] poa_local (K4) P={P} W={W} V={V} B=32: best/tape/tlen/qend "
+                      f"equal (max tlen {int(got[2].max())})")
     results["poa_local"] = dict(max_abs_err=max(errs))
+
+
+def _ptxas(log, kernel):
+    """ptxas's (template arguments, registers, spill store and load
+    bytes) of every instance of ``kernel`` in the build log."""
+    import re
+
+    out, cur, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            args = "/".join(re.findall(r"L[ib](\d+)E", cur.split(kernel, 1)[1]))
+            out.append((args, int(m.group(1)), *spills))
+            cur, spills = None, (0, 0)
+    return out
+
+
+def phase_local_warp_kernel(dev, results):
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import random_local_batch, with_local_edge_cases
+
+    errs, on_backing = [], 0
+    for P in (2, 4, 8):
+        for W in (32, 64, 128, 256):
+            for V in (64, 256, 2048):
+                seed = 500 + P * 3 + W + V
+                far = with_local_edge_cases(random_local_batch(seed, 24, V, P, W - 1,
+                                                               far_frac=0.3))
+                near = random_local_batch(seed + 1, 8, V, P, W - 1, far_frac=0.0)
+                t = [torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(far, near)]
+                got = PD.poa_local_warp(*t)
+                want = PD.poa_local_plain(*t)
+                _check_equal(f"poa_local_warp P={P} W={W} V={V}",
+                             ("best", "tape", "tlen", "qend", "n_backing"), got,
+                             (*want, PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING,
+                                                           PD.LOCAL_PINS)), errs)
+                nb = got[4].cpu()
+                if not bool((nb[:24] > 0).any()) or bool((nb[24:] != 0).any()):
+                    raise AssertionError(f"poa_local_warp P={P} W={W} V={V}: batch lacks its "
+                                         "edge cases")
+                on_backing += int((nb > 0).sum())
+                print(f"[kernels] poa_local_warp (K7) P={P} W={W} V={V} B=32: best/tape/tlen/"
+                      f"qend/n_backing equal; {int((nb > 0).sum())} problems on the backing "
+                      f"store (max {int(nb.max())} rows), max tlen {int(got[2].max())}")
+    regs = _ptxas(kernels.build_log, "poa_local_warp_kernel")
+    print("[kernels] K7 ptxas (P/C/NW: registers, spill store/load bytes): " + "; ".join(
+        f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
+    warps, blocks, smem = PD.poa_local_warp_occupancy(2, 128, 256)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[kernels] K7 at P 2, W 128, V 256: {warps} problems a block, {blocks} blocks an SM, "
+          f"{smem} B shared memory a block: {warps * blocks * sms} problems resident; "
+          f"{on_backing} problems of the grid on the backing store")
+    results["poa_local_warp"] = dict(max_abs_err=max(errs))
 
 
 def _rows_for(path, names):
@@ -570,16 +744,16 @@ def _check_gaf(out, n_reads, read_lens):
     return len(chains), mapped
 
 
-def _cpu_rerun(work, name, prefix, gfa, reads, out, argv):
-    """The first CPU_SAMPLE reads on the plain twins; both GAFs equal to
+def _cpu_rerun(work, name, prefix, gfa, reads, out, argv, sample=CPU_SAMPLE):
+    """The first ``sample`` reads on the plain twins; both GAFs equal to
     the card run's rows for those reads."""
     sample_fa = os.path.join(work, f"{name}-sample.fa")
     with open(sample_fa, "w") as fh:
-        for i in range(min(CPU_SAMPLE, len(reads))):
+        for i in range(min(sample, len(reads))):
             fh.write(f">read{i}\n{reads[i]}\n")
     cpu_out = os.path.join(work, f"{name}-cpu", "smoke")
     _map(prefix, sample_fa, gfa, cpu_out, argv + ["--device", "cpu"])
-    names = {f"read{i}".encode() for i in range(min(CPU_SAMPLE, len(reads)))}
+    names = {f"read{i}".encode() for i in range(min(sample, len(reads)))}
     for kind in ("chains", "alignments"):
         card_rows = _rows_for(f"{out}-{kind}.gaf", names)
         with open(f"{cpu_out}-{kind}.gaf", "rb") as fh:
@@ -647,6 +821,60 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
     return launches
 
 
+def _local_kernel_only(args, warp):
+    """One launch of K7 (``warp``) or K4 through its C entry on output
+    buffers allocated once (K4's H and cell plane zeroed once): the
+    kernel's own time, without the wrapper's allocations and K4's
+    zero-fill."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+
+    vcodes, vpred, nv, q, _nq = args
+    B, V = vcodes.shape
+    P, L = vpred.shape[-1], q.shape[1]
+    W, dev = L + 1, vcodes.device
+    so = kernels.lib()
+    outs = [torch.empty(B, dtype=torch.float32, device=dev),
+            torch.empty((B, W), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev)]
+    ins = [a.data_ptr() for a in (vcodes, vpred, nv, q)]
+    stream = kernels.stream_ptr(dev)
+    if warp:
+        scratch = [torch.empty((B, V, W), dtype=torch.int16, device=dev),
+                   torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
+        nb = torch.empty(B, dtype=torch.int32, device=dev)
+        ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
+        return lambda: kernels.check(so.vg_poa_local_warp(*ptrs), "poa_local_warp")
+    scratch = [torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev),
+               torch.zeros((B, V, W), dtype=torch.uint8, device=dev)]
+    ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), stream]
+    return lambda: kernels.check(so.vg_poa_local(*ptrs), "poa_local")
+
+
+def _local_turns(args, reps=10):
+    """K4 and K7 on the same CUDA tensors, after a warm-up, in turns K4,
+    K7, K7, K4: through their wrappers, then as kernels alone.  Returns
+    {(kernel, how): [ms, ms]}."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    fns = {("K4", "wrapper"): lambda: PD.poa_local_block(*args),
+           ("K7", "wrapper"): lambda: PD.poa_local_warp(*args),
+           ("K4", "kernel"): _local_kernel_only(args, False),
+           ("K7", "kernel"): _local_kernel_only(args, True)}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {key: [] for key in fns}
+    for how in ("wrapper", "kernel"):
+        for name in ("K4", "K7", "K7", "K4"):
+            out[name, how].append(_cuda_ms(fns[name, how], reps))
+    return out
+
+
 def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     import torch
 
@@ -665,7 +893,8 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     try:
         took, launches = _drive("the rspoa path", prefix, fasta, gfa, out,
                                 ["-p", "rspoa", "--precision", "exact"],
-                                ("chain_dp_exact", "poa_local"), ("chain_dp", "poa_dp"))
+                                ("chain_dp_exact", "poa_local_warp"),
+                                ("chain_dp", "poa_dp", "poa_local"))
     finally:
         PD.poa_local = real
     print(f"[rspoa] map -p rspoa -D --precision exact on {N_READS} reads: {took:.2f} s, "
@@ -682,25 +911,41 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
           "to the --device cpu --precision exact run")
 
     args = captured["args"]
-    got = real(*args)
     want = PD.poa_local_plain(*args)
-    errs = []
-    _check_equal("poa_local on the main reads' batch", ("best", "tape", "tlen", "qend"), got,
-                 want, errs)
-    ms = _cuda_ms(lambda: real(*args), 5)
+    got = PD.poa_local_warp(*args)
+    names = ("best", "tape", "tlen", "qend", "n_backing")
+    errs, errs4 = [], []
+    _check_equal("poa_local_warp on the main reads' batch", names, got,
+                 (*want, PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS)),
+                 errs)
+    _check_equal("poa_local (K4) on the main reads' batch", names[:4],
+                 PD.poa_local_block(*args), want, errs4)
+    turns = _local_turns(args)
     plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
     B, V = args[0].shape
-    print(f"[rspoa] poa_local on the main reads' largest batch B={B} V={V} "
-          f"W={args[3].shape[1] + 1} P={args[1].shape[-1]}: equal; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    results["poa_local"].update(max_abs_err=max(results["poa_local"]["max_abs_err"], *errs),
-                                ms=ms, plain_ms=plain_ms,
-                                **_bound_keys(*_local_work(args), F32_OPS_PER_S))
+    W, P = args[3].shape[1] + 1, args[1].shape[-1]
+    bound = _bound_keys(*_local_work(args), F32_OPS_PER_S)
+    line = ", ".join(f"{name} {ms:.4f}" for name, ms in zip(
+        ("K4", "K7", "K7", "K4"), (turns["K4", "wrapper"][0], turns["K7", "wrapper"][0],
+                                   turns["K7", "wrapper"][1], turns["K4", "wrapper"][1])))
+    line_k = ", ".join(f"{name} {ms:.4f}" for name, ms in zip(
+        ("K4", "K7", "K7", "K4"), (turns["K4", "kernel"][0], turns["K7", "kernel"][0],
+                                   turns["K7", "kernel"][1], turns["K4", "kernel"][1])))
+    print(f"[rspoa] local POA on the main reads' largest batch B={B} V={V} W={W} P={P}, mean "
+          f"nv {float(args[2].float().mean()):.2f}: K7 and K4 equal to the twin, "
+          f"{int((got[4] > 0).sum())} problems on K7's backing store; in turns through the "
+          f"wrappers {line} ms; kernels alone {line_k} ms; plain {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) ({card})")
+    results["poa_local"]["max_abs_err"] = max(results["poa_local"]["max_abs_err"], *errs4)
+    results["poa_local_warp"].update(
+        max_abs_err=max(results["poa_local_warp"]["max_abs_err"], *errs),
+        ms=sum(turns["K7", "wrapper"]) / 2, plain_ms=plain_ms, **bound)
     torch.cuda.synchronize()
     return launches
 
 
-def phase_long_reads(work, prefix, gfa, graph, card):
+def phase_long_reads(work, prefix, gfa, graph, card, results):
+    from vgaligner_tpu_torch.ops import poa_device as PD
     from vgaligner_tpu_torch.testing import sample_reads, write_fasta
 
     rng = np.random.default_rng(3)
@@ -711,8 +956,21 @@ def phase_long_reads(work, prefix, gfa, graph, card):
     write_fasta(fasta, reads)
     out = os.path.join(work, "long-card", "smoke")
     argv = ["-p", "abpoa", "--precision", "fast"]
-    took, launches = _drive("the long-read path", prefix, fasta, gfa, out, argv,
-                            ("chain_dp", "poa_dp", "poa_traceback"), ("poa_dp_tb",))
+    captured = {}
+    real = PD.poa_dp
+
+    def keep_largest(*args):
+        work_ = int(args[3].sum()) * args[4].shape[1]
+        if not captured or work_ > captured["work"]:
+            captured.update(args=args, work=work_)
+        return real(*args)
+
+    PD.poa_dp = keep_largest
+    try:
+        took, launches = _drive("the long-read path", prefix, fasta, gfa, out, argv,
+                                ("chain_dp", "poa_dp", "poa_traceback"), ("poa_dp_tb",))
+    finally:
+        PD.poa_dp = real
     n_chains, mapped = _check_gaf(out, len(reads),
                                   {f"read{i}": len(r) for i, r in enumerate(reads)})
     cpu_out = os.path.join(work, "long-cpu", "smoke")
@@ -726,10 +984,102 @@ def phase_long_reads(work, prefix, gfa, graph, card):
     print(f"[long] map -p abpoa -D on {N_LONG} reads of 1,500-2,100 bp and one of 10 kb: "
           f"card {took:.2f} s ({card}), CPU plain {cpu_took:.2f} s; {mapped}/{len(reads)} "
           f"aligned; chains and alignments GAF byte-identical; launches {launches}")
+    _long_chunk_kernels(captured["args"], card, results)
+    return launches, _long_rspoa(work, prefix, gfa, fasta, reads, card, results)
+
+
+def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
+    """The rspoa route over the long reads, whose local POA rows are over
+    256 columns: K4 and K5 launched, K7 not; the first LONG_CPU_SAMPLE
+    reads byte-identical to the CPU plain path; K4 held against its twin,
+    timed and bounded on the largest batch the run gave it."""
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    captured = {}
+    real = PD.poa_local
+
+    def keep_largest(*args):
+        work_ = int(args[2].sum()) * args[3].shape[1]
+        if not captured or work_ > captured["work"]:
+            captured.update(args=args, work=work_)
+        return real(*args)
+
+    out = os.path.join(work, "long-rspoa", "smoke")
+    argv = ["-p", "rspoa", "--precision", "exact"]
+    PD.poa_local = keep_largest
+    try:
+        took, launches = _drive("the long-read rspoa path", prefix, fasta, gfa, out, argv,
+                                ("chain_dp_exact", "poa_local"),
+                                ("poa_local_warp", "chain_dp", "poa_dp", "poa_traceback",
+                                 "poa_dp_tb"))
+    finally:
+        PD.poa_local = real
+    _n_chains, mapped = _check_gaf(out, len(reads),
+                                   {f"read{i}": len(r) for i, r in enumerate(reads)})
+    n = _cpu_rerun(work, "long-rspoa", prefix, gfa, reads, out, argv, LONG_CPU_SAMPLE)
+    print(f"[long] map -p rspoa -D --precision exact on the same reads: card {took:.2f} s "
+          f"({card}); {mapped}/{len(reads)} aligned; first {n} reads byte-identical to the "
+          f"--device cpu run; launches {launches}")
+
+    args = captured["args"]
+    errs = []
+    _check_equal("poa_local (K4) on the long reads' largest batch",
+                 ("best", "tape", "tlen", "qend"), PD.poa_local_block(*args),
+                 PD.poa_local_plain(*args), errs)
+    ms = _cuda_ms(lambda: PD.poa_local_block(*args), 10)
+    alone = _cuda_ms(_local_kernel_only(args, False), 10)
+    plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
+    bound = _bound_keys(*_local_work(args), F32_OPS_PER_S)
+    results["poa_local"].update(max_abs_err=max(results["poa_local"]["max_abs_err"], *errs),
+                                ms=ms, plain_ms=plain_ms, **bound)
+    B, V = args[0].shape
+    print(f"[long] rspoa largest local POA batch B={B} V={V} W={args[3].shape[1] + 1} "
+          f"P={args[1].shape[-1]} mean nv {float(args[2].float().mean()):.1f}: K4 equal to the "
+          f"twin; K4 {ms:.4f} ms through its wrapper, {alone:.4f} ms alone (bound "
+          f"{bound['bound_ms']:.4f}, {bound['bound_by']}; plain {plain_ms:.3f}) ({card})")
     return launches
 
 
-def kernel_line(results, launches, launches_rspoa, launches_long):
+def _long_chunk_kernels(args, card, results):
+    """K2 and K3 on the long-read path's largest chunk: held against the
+    twins (score, best_sink, tbits below nv; tape and tlen), timed, and
+    bounded from that chunk."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    t, init = args[:6], args[6]
+    score, sinks, tbits = PD.poa_dp(*t, init)
+    tape, tlen = PD.poa_traceback(tbits, t[1], sinks, t[5])
+    torch.cuda.synchronize()
+    ws, wk, wtb = PD.poa_dp_plain(*t, init)
+    errs = []
+    _check_equal("poa_dp on the long reads' largest chunk", ("score", "best_sink"),
+                 (score, sinks), (ws, wk), errs)
+    below_nv = torch.arange(tbits.shape[1], device=tbits.device)[None, :] < t[3][:, None]
+    if not torch.equal(tbits[below_nv], wtb[below_nv]):
+        raise AssertionError("poa_dp on the long reads' largest chunk: tbits differ below nv")
+    wtape, wtl = PD.poa_traceback_plain(tbits, t[1], sinks, t[5])
+    _check_equal("poa_traceback on the long reads' largest chunk", ("tape", "tlen"),
+                 (tape, tlen), (wtape, wtl), errs)
+    k2 = _cuda_ms(lambda: PD.poa_dp(*t, init), 10)
+    k3 = _cuda_ms(lambda: PD.poa_traceback(tbits, t[1], sinks, t[5]), 10)
+    plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
+    plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
+    B, V, W = tbits.shape
+    results["poa_dp"].update(ms=k2, plain_ms=plain_dp,
+                             max_abs_err=max(results["poa_dp"]["max_abs_err"], *errs),
+                             **_bound_keys(*_poa_dp_work(t), F32_OPS_PER_S))
+    results["poa_traceback"].update(ms=k3, plain_ms=plain_tb,
+                                    **_bound_keys(*_walk_work(tlen, B, V, W), F32_OPS_PER_S))
+    print(f"[long] largest chunk B={B} V={V} W={W} P={t[1].shape[-1]} mean nv "
+          f"{float(t[3].float().mean()):.1f}: K2 and K3 equal to the twins; K2 {k2:.4f} ms "
+          f"(bound {results['poa_dp']['bound_ms']:.4f}, {results['poa_dp']['bound_by']}; plain "
+          f"{plain_dp:.3f}), K3 {k3:.4f} ms (bound {results['poa_traceback']['bound_ms']:.4f}, "
+          f"{results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}) ({card})")
+
+
+def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa):
     """The per-kernel result line: each kernel with the launches of the
     path that runs it and its measured and bound times."""
     k2_replaces = "vgaligner_tpu/ops/poa_pallas2.py:434, vgaligner_tpu/ops/poa_pallas.py:258"
@@ -741,7 +1091,10 @@ def kernel_line(results, launches, launches_rspoa, launches_long):
                           launches_long),
         "poa_dp_tb": ("poa_dp_tb.cu", f"{k2_replaces}, {k3_replaces} (rows up to 256 "
                       "columns)", launches),
-        "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075", launches_rspoa),
+        "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows over 256 "
+                      "columns)", launches_long_rspoa),
+        "poa_local_warp": ("poa_local_warp.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows up "
+                           "to 256 columns)", launches_rspoa),
         "chain_dp_exact": ("chain_dp_exact.cu", "vgaligner_tpu/ops/chain.py:102-177",
                            launches_rspoa),
     }
@@ -789,14 +1142,16 @@ def main() -> int:
         main_t, main_init = phase_poa_kernels(dev, results)
         phase_fused_kernel(dev, results, main_t, main_init)
         phase_local_kernel(dev, results)
+        phase_local_warp_kernel(dev, results)
         launches = phase_main_path(work, prefix, gfa, fasta, reads, card, results)
         launches_rspoa = phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results)
-        launches_long = phase_long_reads(work, prefix, gfa, graph, card)
+        launches_long, launches_long_rspoa = phase_long_reads(work, prefix, gfa, graph, card,
+                                                              results)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
-    line = kernel_line(results, launches, launches_rspoa, launches_long)
+    line = kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa)
     print(f"[done] smoke took {time.monotonic() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ import torch
 
 from vgaligner_tpu_torch.ops import chain as C
 from vgaligner_tpu_torch.ops import poa_device as PD
-from vgaligner_tpu_torch.testing import random_poa_batch, sample_reads, write_synthetic_gfa
+from vgaligner_tpu_torch.testing import (random_local_batch, random_poa_batch, sample_reads,
+                                         with_local_edge_cases, write_synthetic_gfa)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_device")]
 K = 11
@@ -126,6 +127,91 @@ def test_poa_local_kernel_matches_plain(cuda_device, P, W, V):
     want = PD.poa_local_plain(*arrs)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _local_warp_matches_plain(dev, arrs):
+    """poa_local_warp's kernel against poa_local_plain on the same CUDA
+    tensors, bit for bit, through ``poa_local`` (which must route there);
+    returns n_backing."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+    before = PD.kernels.launch_counts()
+    got = PD.poa_local(*t)
+    after = PD.kernels.launch_counts()
+    assert after["poa_local_warp"] == before["poa_local_warp"] + 1
+    assert after["poa_local"] == before["poa_local"]
+    want = PD.poa_local_plain(*t)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    n_backing = PD.poa_local_warp(*t)[4]
+    assert torch.equal(n_backing, PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS))
+    return n_backing.cpu()
+
+
+@pytest.mark.parametrize("P,W,V", [(2, 32, 64), (4, 64, 256), (8, 128, 64), (2, 128, 256),
+                                   (4, 128, 2048), (8, 256, 256), (2, 256, 64), (4, 32, 2048)])
+def test_poa_local_warp_kernel_matches_plain(cuda_device, P, W, V):
+    """Far predecessors beyond the ring, problems over the pin budget (the
+    backing store), a predecessor at and past its vertex, nv far below V
+    and nv = 0, and problems within the ring."""
+    far = with_local_edge_cases(random_local_batch(P * W + V, 12, V, P, W - 1, far_frac=0.3))
+    near = random_local_batch(P * W + V + 1, 4, V, P, W - 1, far_frac=0.0)
+    n_backing = _local_warp_matches_plain(cuda_device, [np.concatenate(x) for x in zip(far, near)])
+    assert (n_backing[:12] > 0).any() and (n_backing[12:] == 0).all()
+
+
+def test_poa_local_warp_kernel_rspoa_batch_shape(cuda_device):
+    """The rspoa path's batch shape: 8,192 problems x V 256 x W 128, P 2."""
+    _local_warp_matches_plain(cuda_device, random_local_batch(9, 8192, 256, 2, 127, far_frac=0.0))
+
+
+def _exact_args(dev, seed, B, A, unsorted=False):
+    rng = np.random.default_rng(seed)
+    qb = torch.from_numpy(rng.integers(0, 90, (B, A)).astype(np.int32))
+    if unsorted:  # valid anchors not a prefix
+        te = torch.from_numpy(np.sort(rng.integers(0, 3 * A, (B, A)), axis=1) + K)
+        valid = torch.from_numpy(rng.random((B, A)) < 0.5)
+        return [x.to(dev).contiguous() for x in (qb, te - K, te, valid)]
+    tb = torch.from_numpy(rng.integers(0, 2 * A, (B, A)).astype(np.int64))
+    valid = torch.from_numpy(rng.random((B, A)) < 0.7)
+    valid[1] = False  # a read with no valid anchor
+    _o, qb_s, tb_s, te_s, v_s = C.sort_anchors(qb, tb, tb + K, valid)
+    return [x.to(dev).contiguous() for x in (qb_s, tb_s, te_s, v_s)]
+
+
+@pytest.mark.parametrize("per_pair", [False, True])
+@pytest.mark.parametrize("bw", [20, 50, 100])
+@pytest.mark.parametrize("unsorted", [False, True])
+def test_chain_exact_kernel_paths_match_plain(cuda_device, unsorted, bw, per_pair):
+    """The last-valid stop, one divide a row and (a table with a
+    negative entry) one a pair, at bands under, near and over the warp,
+    on sorted reads and on reads whose valid anchors are scattered, bit
+    for bit."""
+    args = _exact_args(cuda_device, 11 + bw, 37, 300, unsorted)
+    table = C.make_gap_cost_table(K, 1000)
+    if per_pair:
+        table[-1] = -table[-1]
+    assert C.exact_divide_once(300, K, table) != per_pair
+    got = C.chain_dp_exact(*args, K, bw, table)
+    want = C.chain_dp_exact_plain(*args, K, bw, table)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int64) if g.dtype == torch.float64 else g,
+                           w.view(torch.int64) if w.dtype == torch.float64 else w)
+    assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_chain_exact_kernel_over_the_bound(cuda_device, seed):
+    """A gap table whose milli-unit scores pass 2^41: the per-pair-divide
+    path, bit for bit."""
+    args = _exact_args(cuda_device, seed, 16, 200)
+    table = -C.make_gap_cost_table(K, 1000) * 1e8
+    assert not C.exact_divide_once(200, K, table)
+    got = C.chain_dp_exact(*args, K, 50, table)
+    want = C.chain_dp_exact_plain(*args, K, 50, table)
+    assert torch.equal(got[0].view(torch.int64), want[0].view(torch.int64))
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2].view(torch.int64), want[2].view(torch.int64))
+    assert float(want[2].abs().max()) * 1000 > 2 ** 41
 
 
 @pytest.mark.parametrize("seed,B,A,bw,max_gap", [(0, 64, 256, 50, 1000), (1, 3, 3000, 50, 1000),

@@ -46,3 +46,25 @@ def test_census_of_the_main_path_at_a_small_size(tmp_path):
     assert all(c["W"] == 128 and c["B"] >= c["problems"] for c in out["chunks"])
     assert out["backing_problems"] <= out["problems"]
     assert np.isfinite(out["nv_mean"])
+
+
+def test_census_of_the_rspoa_path_at_a_small_size(tmp_path):
+    """``--engine rspoa``: the local POA batches of ``map -p rspoa``, one
+    per (V, L) bucket, padded to a power of two problems."""
+    path = tmp_path / "rspoa.json"
+    out = poa_chunk_stats.main(["--engine", "rspoa", "--reads", "96", "--backbone", "900",
+                                "--json", str(path)])
+    assert json.loads(path.read_text()) == json.loads(json.dumps(out))
+    assert out["engine"] == "rspoa" and out["problems"] >= 90
+    for c in out["chunks"]:
+        assert c["W"] == 128 and c["V"] >= 256 and c["B"] >= c["problems"]
+        assert c["B"] & (c["B"] - 1) == 0 and c["P"] in (2, 4, 8)
+    assert out["topological"] and 0 < out["nv_mean"] <= max(c["V"] for c in out["chunks"])
+    assert out["backing_problems"] <= out["problems"]
+
+
+def test_chunk_stats_backing_follows_ring_and_pins():
+    _vc, vpred, _sink, nv, _q, _nq = random_poa_batch(9, 8, 128, 4, 63, far_frac=0.3)
+    far16 = _far_by_hand(vpred, nv, 16)
+    st = poa_chunk_stats.chunk_stats(vpred, nv, 8, ring=16, pins=2)
+    assert st["backing_problems"] == sum(f > 2 for f in far16)

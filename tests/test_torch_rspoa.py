@@ -39,7 +39,7 @@ from vgaligner_tpu_torch.models.mapper import Mapper
 from vgaligner_tpu_torch.models.poa_aligner import PoaAligner, PoaEngine
 from vgaligner_tpu_torch.models.stream import stream_map_align
 from vgaligner_tpu_torch.ops import poa_device as PD
-from vgaligner_tpu_torch.testing import (one_torch_thread, random_poa_batch, sample_reads,
+from vgaligner_tpu_torch.testing import (one_torch_thread, random_local_batch, sample_reads,
                                          write_fasta, write_synthetic_gfa)
 
 K = 11
@@ -47,31 +47,11 @@ CPU = torch.device("cpu")
 _one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
-def _local_batch(seed, B, V, P, L):
-    """random_poa_batch with each query (but problem 0's) holding a
-    mutated walk back along first predecessors, so the local alignments
-    are long; problem 0's query is all N, so it has no positive cell."""
-    vcodes, vpred, _sink, nv, q, nq = random_poa_batch(seed, B, V, P, L)
-    rng = np.random.default_rng(seed)
-    for b in range(1, B):
-        v, walk = int(rng.integers(nv[b] // 2, nv[b])), []
-        while v >= 0 and len(walk) < nq[b]:
-            walk.append(int(vcodes[b, v]))
-            v = int(vpred[b, v, 0])
-        codes = np.asarray(walk[::-1], dtype=np.int8)
-        mut = rng.random(len(codes)) < 0.05
-        codes[mut] = rng.integers(0, 5, int(mut.sum()))
-        off = int(rng.integers(0, nq[b] - len(codes) + 1))
-        q[b, off : off + len(codes)] = codes
-    q[0] = 4
-    return vcodes, vpred, nv, q, nq
-
-
 @pytest.mark.parametrize("P,W", [(2, 128), (4, 128), (8, 128), (2, 256), (4, 256),
                                  (8, 256), (2, 2048)])
 def test_poa_local_plain_matches_jax(P, W):
     V = 256 if W == 128 else 64
-    arrs = _local_batch(30 + P + W, 8, V, P, W - 1)
+    arrs = random_local_batch(30 + P + W, 8, V, P, W - 1)
     want = jax.device_get(JPD.poa_local_kernel(*(jnp.asarray(a) for a in arrs)))
     got = PD.poa_local(*(torch.from_numpy(a) for a in arrs))
     for name, g, w in zip(("best", "tape", "tlen", "qend"), got, want):

@@ -2,14 +2,16 @@
 
 The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
 traceback, the fused POA DP + traceback for rows up to 256 columns,
-local POA) are compiled by ``nvcc`` for ``sm_90a``, one
+local POA, and local POA one warp a problem for rows up to 256
+columns) are compiled by ``nvcc`` for ``sm_90a``, one
 process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes.  The build runs
 at first use, into ``vgaligner_tpu_torch/_build/``, keyed by a hash of
 the sources and the flags, so a fresh checkout builds everything it
 needs and a rebuilt source never loads a stale library.  A failed build
 raises with nvcc's stderr; a good one keeps ptxas's register and
-shared-memory report of every kernel in ``build_log``.
+shared-memory report of every kernel in ``build_log``, and in a file
+beside the library, which a later process reads back.
 
 Every C entry point enqueues on the stream it is given (the wrapper
 passes ``torch.cuda.current_stream()``), allocates nothing, and returns
@@ -34,7 +36,7 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp.cu", "poa_traceback.cu",
-           "poa_dp_tb.cu", "poa_local.cu")
+           "poa_dp_tb.cu", "poa_local.cu", "poa_local_warp.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -42,7 +44,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp": 0, "poa_traceback": 0,
-            "poa_dp_tb": 0, "poa_local": 0, "chain_gap_cost": 0}
+            "poa_dp_tb": 0, "poa_local": 0, "poa_local_warp": 0, "chain_gap_cost": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -87,11 +89,13 @@ def build() -> str:
 
     path = library_path()
     if os.path.exists(path):
+        build_log = _saved_log(path)
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "kernels.lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         if os.path.exists(path):
+            build_log = _saved_log(path)
             return path
         tmp = f"{path}.{os.getpid()}.tmp"
         nvcc = nvcc_path()
@@ -118,8 +122,19 @@ def build() -> str:
         if failed:
             cmd, rc = failed[0]
             raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{build_log}")
+        with open(f"{path}.log", "w") as fh:
+            fh.write(build_log)
         os.replace(tmp, path)
     return path
+
+
+def _saved_log(path: str) -> str:
+    """The build log kept beside a library built earlier, if any."""
+    try:
+        with open(f"{path}.log") as fh:
+            return fh.read()
+    except FileNotFoundError:
+        return ""
 
 
 def lib() -> ctypes.CDLL:
@@ -134,10 +149,14 @@ def lib() -> ctypes.CDLL:
         so.vg_chain_dp.restype = ci
         so.vg_chain_gap_cost.argtypes = [vp, ci, ci, vp, vp]
         so.vg_chain_gap_cost.restype = ci
-        so.vg_chain_dp_exact.argtypes = [vp] * 5 + [ci] * 5 + [vp] * 4
+        so.vg_chain_dp_exact.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 4
         so.vg_chain_dp_exact.restype = ci
         so.vg_poa_local.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 7
         so.vg_poa_local.restype = ci
+        so.vg_poa_local_warp.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 8
+        so.vg_poa_local_warp.restype = ci
+        so.vg_poa_local_warp_occupancy.argtypes = [ci, ci, ci, vp]
+        so.vg_poa_local_warp_occupancy.restype = ci
         so.vg_poa_dp.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 5
         so.vg_poa_dp.restype = ci
         so.vg_poa_traceback.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 3

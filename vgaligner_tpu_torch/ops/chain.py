@@ -15,7 +15,8 @@ the global best proposed score.
     true IEEE divide by 1000 over the host's f64 gap table.
     ``chain_dp_exact`` launches the CUDA kernel
     (kernels/csrc/chain_dp_exact.cu) on a CUDA tensor and runs
-    ``chain_dp_exact_plain`` on a CPU tensor.
+    ``chain_dp_exact_plain`` on a CPU tensor.  The kernel divides only
+    each row's winner where ``exact_divide_once`` says that is exact.
 """
 
 from __future__ import annotations
@@ -234,11 +235,45 @@ def chain_dp(qb, tb, te, valid, seed_length: int, bandwidth: int, max_gap: int):
     return f, pred, cmax
 
 
+_DIV_ONCE_LIMIT = 2.0 ** 41  # |rr| bound under which one divide a row is exact
+# (seed length, max_gap, device) -> (host table, device table)
+_GAP_TABLES: dict = {}
+
+
+def exact_divide_once(A: int, seed_length: int, gap_table: np.ndarray) -> bool:
+    """Whether chain_dp_exact.cu may compare rr (the rounded milli-unit
+    score before its divide by 1000) and divide only each row's winner:
+    every |rr| stays below 2^41, so a -> fl(a / 1000) is strictly
+    increasing on them (the kernel's header has the proof), and an
+    anchor index fits the 21 bits the kernel packs it in.  With every
+    gcost finite and >= 0, every f is at most k + A (k + 0.001) and every
+    x at least k - max gcost; a negative gcost would let f grow by it on
+    every row, so such a table divides every pair."""
+    table = np.asarray(gap_table, dtype=np.float64)
+    if A > 1 << 21 or not np.isfinite(table).all() or (table < 0).any():
+        return False
+    g_max = float(table.max()) if table.size else 0.0
+    return 1000.0 * (A * (seed_length + 1) + 2 * seed_length + g_max) + 1 < _DIV_ONCE_LIMIT
+
+
+def _device_gap_table(gap_table: np.ndarray, seed_length: int, device) -> torch.Tensor:
+    """The f64 gap table on ``device``, uploaded once per (seed length,
+    max_gap, device) and again only when its values change."""
+    host = np.ascontiguousarray(gap_table, dtype=np.float64)
+    key = (seed_length, len(host) - 1, str(device))
+    hit = _GAP_TABLES.get(key)
+    if hit is None or not np.array_equal(hit[0], host):
+        hit = (host.copy(), torch.from_numpy(host.copy()).to(device))
+        _GAP_TABLES[key] = hit
+    return hit[1]
+
+
 def chain_dp_exact(qb, tb, te, valid, seed_length: int, bandwidth: int,
                    gap_table: np.ndarray):
     """Exact-mode DP over sorted anchors: the CUDA kernel for CUDA
     tensors, the plain twin for CPU tensors.  qb int32, tb/te int64
-    [B, A], valid bool; the f64 gap table is uploaded as it is."""
+    [B, A], valid bool.  On the card a row's winner is divided once where
+    ``exact_divide_once`` holds, else every pair, as the twin does."""
     if qb.device.type == "cpu":
         return chain_dp_exact_plain(qb, tb, te, valid, seed_length, bandwidth, gap_table)
     B, A = qb.shape
@@ -246,9 +281,12 @@ def chain_dp_exact(qb, tb, te, valid, seed_length: int, bandwidth: int,
                         ("te", te, torch.int64), ("valid", valid, torch.bool)):
         if t.dtype != dt or t.shape != (B, A):
             raise ValueError(f"chain_dp_exact: {name} must be {dt} [{B}, {A}]")
+    if not 0 <= seed_length <= 255 or len(gap_table) - 1 >= (1 << 24) - 1:
+        raise ValueError("chain_dp_exact: needs a seed length up to 255 and max_gap below 2^24 - 1")
     kernels.require_cuda("chain_dp_exact", qb, tb, te, valid)
     dev = qb.device
-    table = torch.from_numpy(np.ascontiguousarray(gap_table, dtype=np.float64)).to(dev)
+    table = _device_gap_table(gap_table, seed_length, dev)
+    div_once = exact_divide_once(A, seed_length, gap_table)
     f = torch.empty((B, A), dtype=torch.float64, device=dev)
     pred = torch.empty((B, A), dtype=torch.int32, device=dev)
     cmax = torch.empty(B, dtype=torch.float64, device=dev)
@@ -257,8 +295,8 @@ def chain_dp_exact(qb, tb, te, valid, seed_length: int, bandwidth: int,
     kernels.check(
         so.vg_chain_dp_exact(qb.data_ptr(), tb.data_ptr(), te.data_ptr(), valid.data_ptr(),
                              table.data_ptr(), B, A, seed_length, bandwidth,
-                             len(gap_table) - 1, f.data_ptr(), pred.data_ptr(),
-                             cmax.data_ptr(), kernels.stream_ptr(dev)),
+                             len(gap_table) - 1, int(div_once), f.data_ptr(),
+                             pred.data_ptr(), cmax.data_ptr(), kernels.stream_ptr(dev)),
         "chain_dp_exact",
     )
     return f, pred, cmax

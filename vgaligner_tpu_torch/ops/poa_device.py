@@ -15,9 +15,11 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     runs the same DP under the lane-padded contract of the JAX package's
     Pallas kernel ``poa_dp_pallas``.
   * local gapless (rspoa): ``align_local_batch`` builds problems with
-    ``prepare_problem``, runs ``poa_local`` (kernels/csrc/poa_local.cu,
-    or ``poa_local_plain``) per (V, L) bucket and decodes each tape
-    through the port's ``ops/poa.py::_finish_result``.
+    ``prepare_problem``, runs ``poa_local`` per (V, L) bucket and decodes
+    each tape through the port's ``ops/poa.py::_finish_result``.  Rows
+    of up to 256 columns take ``poa_local_warp``, one warp a problem
+    (kernels/csrc/poa_local_warp.cu); wider rows take
+    kernels/csrc/poa_local.cu; on the CPU, ``poa_local_plain``.
 
 Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 -4, gaps 4+2g and 24+g).  Decision bits per cell (int32):
@@ -415,6 +417,7 @@ def poa_traceback(tbits, vpred, best_sink, nq):
 
 TB_WIDTHS = (32, 64, 128, 256)  # W = 32 C, C = 1/2/4/8 columns a lane
 TB_RING, TB_PINS = 8, 4  # poa_dp_tb.cu's row ring and pinned far rows
+LOCAL_RING, LOCAL_PINS = 8, 4  # poa_local_warp.cu's rows back in its ring, pinned far rows
 
 
 def far_vertices_plain(vpred, nv, ring: int = TB_RING):
@@ -428,12 +431,13 @@ def far_vertices_plain(vpred, nv, ring: int = TB_RING):
     return marks[:, :V].sum(dim=1).to(torch.int32)
 
 
-def backing_rows_plain(vpred, nv):
-    """Rows per problem that ``poa_dp_tb``'s kernel keeps in its global
-    backing store: the far vertices (``far_vertices_plain`` at TB_RING)
-    less the first TB_PINS of them, which get pinned shared-memory rows.
-    vpred [B,V,P], nv [B] -> [B] int32."""
-    return (far_vertices_plain(vpred, nv) - TB_PINS).clamp_min(0).to(torch.int32)
+def backing_rows_plain(vpred, nv, ring: int = TB_RING, pins: int = TB_PINS):
+    """Rows per problem that a row-ring kernel keeps in its global
+    backing store: the far vertices (``far_vertices_plain`` at ``ring``)
+    less the first ``pins`` of them, which get pinned shared-memory rows;
+    ``poa_dp_tb``'s kernel at the defaults, ``poa_local_warp``'s at
+    LOCAL_RING and LOCAL_PINS.  vpred [B,V,P], nv [B] -> [B] int32."""
+    return (far_vertices_plain(vpred, nv, ring) - pins).clamp_min(0).to(torch.int32)
 
 
 def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row):
@@ -696,26 +700,48 @@ def poa_local_plain(vcodes, vpred, nv, q, nq):
     return best, tape, tlen, bj
 
 
-def poa_local(vcodes, vpred, nv, q, nq):
-    """Local gapless DP + traceback: the CUDA kernel for CUDA tensors,
-    the plain twin for CPU tensors.  Same arguments and outputs as
-    ``poa_local_plain``."""
-    if vcodes.device.type == "cpu":
-        return poa_local_plain(vcodes, vpred, nv, q, nq)
+LOCAL_WARP_WIDTHS = TB_WIDTHS  # rows poa_local_warp.cu takes: W = 32 C, C = 1/2/4/8
+
+
+def _check_local_inputs(name, vcodes, vpred, nv, q):
+    """The local POA's CUDA inputs as its kernels take them -> (B, V, P, L)."""
     B, V = vcodes.shape
     L = q.shape[1]
     P = vpred.shape[-1]
-    W = L + 1
     checks = ((vcodes, torch.int8, (B, V)), (vpred, torch.int32, (B, V, P)),
               (nv, torch.int32, (B,)), (q, torch.int8, (B, L)))
     for t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"poa_local: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
+            raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
     if P not in (2, 4, 8):
-        raise ValueError(f"poa_local: unsupported P={P} (2/4/8)")
+        raise ValueError(f"{name}: unsupported P={P} (2/4/8)")
+    kernels.require_cuda(name, vcodes, vpred, nv, q)
+    return B, V, P, L
+
+
+def poa_local(vcodes, vpred, nv, q, nq):
+    """Local gapless DP + traceback: for CUDA tensors ``poa_local_warp``
+    at rows of W = L + 1 in LOCAL_WARP_WIDTHS (up to 256 columns),
+    ``poa_local_block`` at other widths; the plain twin for CPU tensors.
+    Same arguments and outputs as ``poa_local_plain``."""
+    if vcodes.device.type == "cpu":
+        return poa_local_plain(vcodes, vpred, nv, q, nq)
+    if q.shape[1] + 1 in LOCAL_WARP_WIDTHS:
+        return poa_local_warp(vcodes, vpred, nv, q, nq)[:4]
+    return poa_local_block(vcodes, vpred, nv, q, nq)
+
+
+def poa_local_block(vcodes, vpred, nv, q, nq):
+    """Local gapless DP + traceback, one block a problem: the CUDA kernel
+    (kernels/csrc/poa_local.cu) for CUDA tensors at any width
+    ``kernels.check_row_width`` takes, the plain twin for CPU tensors.
+    Same arguments and outputs as ``poa_local_plain``; ``poa_local``
+    sends it the rows wider than 256 columns."""
+    if vcodes.device.type == "cpu":
+        return poa_local_plain(vcodes, vpred, nv, q, nq)
+    B, V, P, L = _check_local_inputs("poa_local", vcodes, vpred, nv, q)
+    W = L + 1
     kernels.check_row_width("poa_local", W)
-    kernels.require_cuda("poa_local", vcodes, vpred, nv, q)
     dev = vcodes.device
     H = torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev)
     cells = torch.zeros((B, V, W), dtype=torch.uint8, device=dev)
@@ -733,6 +759,53 @@ def poa_local(vcodes, vpred, nv, q, nq):
         "poa_local",
     )
     return best, tape, tlen, qend
+
+
+def poa_local_warp(vcodes, vpred, nv, q, nq):
+    """Local gapless DP + traceback, one warp a problem: the CUDA kernel
+    (kernels/csrc/poa_local_warp.cu) for CUDA tensors with W = L + 1 in
+    LOCAL_WARP_WIDTHS, ``poa_local_plain`` for CPU tensors.  Same
+    arguments as ``poa_local`` -> (best, tape, tlen, qend, n_backing): the
+    first four as ``poa_local_plain`` gives them, and n_backing [B] int32
+    the rows each problem kept in the kernel's backing store
+    (``backing_rows_plain`` at LOCAL_RING, LOCAL_PINS)."""
+    if vcodes.device.type == "cpu":
+        return (*poa_local_plain(vcodes, vpred, nv, q, nq),
+                backing_rows_plain(vpred, nv, LOCAL_RING, LOCAL_PINS))
+    B, V, P, L = _check_local_inputs("poa_local_warp", vcodes, vpred, nv, q)
+    W = L + 1
+    if W not in LOCAL_WARP_WIDTHS:
+        raise ValueError(f"poa_local_warp: unsupported row width W={W} {LOCAL_WARP_WIDTHS}")
+    dev = vcodes.device
+    # never zeroed: the kernel writes every cell a walk can read, and
+    # only the backing rows of n_backing are written and read
+    backing = torch.empty((B, V, W), dtype=torch.int16, device=dev)
+    cells = torch.empty((B, V, W), dtype=torch.uint8, device=dev)
+    best = torch.empty(B, dtype=torch.float32, device=dev)
+    tape = torch.empty((B, W), dtype=torch.int32, device=dev)
+    tlen = torch.empty(B, dtype=torch.int32, device=dev)
+    qend = torch.empty(B, dtype=torch.int32, device=dev)
+    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    so = kernels.lib()
+    kernels.LAUNCHES["poa_local_warp"] += 1
+    kernels.check(
+        so.vg_poa_local_warp(vcodes.data_ptr(), vpred.data_ptr(), nv.data_ptr(), q.data_ptr(),
+                             B, V, P, L, backing.data_ptr(), cells.data_ptr(), best.data_ptr(),
+                             tape.data_ptr(), tlen.data_ptr(), qend.data_ptr(),
+                             n_backing.data_ptr(), kernels.stream_ptr(dev)),
+        "poa_local_warp",
+    )
+    return best, tape, tlen, qend, n_backing
+
+
+def poa_local_warp_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
+    """(problems a block holds, blocks an SM keeps resident, dynamic
+    shared memory per block in bytes) of ``poa_local_warp``'s kernel at
+    this shape, from the CUDA occupancy calculator.  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.lib().vg_poa_local_warp_occupancy(P, W, V, ctypes.addressof(out)),
+                  "poa_local_warp_occupancy")
+    return out[0], out[1], out[2]
 
 
 def align_local_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int, int]], str]],

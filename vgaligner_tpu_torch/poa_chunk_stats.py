@@ -1,18 +1,27 @@
-"""What the main path's POA chunks ask of the fused DP + traceback kernel.
+"""What the POA batches of a CLI run ask of the row-ring POA kernels.
 
-    python -m vgaligner_tpu_torch.poa_chunk_stats [--reads 12288]
-        [--backbone 22600] [--json PATH]
+    python -m vgaligner_tpu_torch.poa_chunk_stats [--engine abpoa|rspoa]
+        [--reads 12288] [--backbone 22600] [--json PATH]
 
 Maps chip_smoke.py's reads (``write_synthetic_gfa`` seed 0, k = 11, 100
-bp reads from bench.py's sampler, seed 77) on the CPU, builds the abPOA
-engine's POA problem chunks exactly as ``map -p abpoa -D`` does, and
-reports them without running the DP: per chunk its shape and the real
-problems' vertex counts nv (mean and max), whether every predecessor
-precedes its vertex (so that the kernel's all-NEGF sentinel row stands
-in for an unwritten row), and how many distinct vertices each problem
-reads from farther back than a row ring of 8 and of 16 rows, and so how
-many problems overflow the kernel's pinned rows into its backing store.
-Everything here is counted on the host; nothing is timed.
+bp reads from bench.py's sampler, seed 77) on the CPU and builds the POA
+problem batches exactly as the CLI does, without running the DP:
+
+  * ``--engine abpoa`` (``map -p abpoa -D``, fast chaining): the chunks
+    ``kernel_dispatch`` receives, which the fused DP + traceback kernel
+    (poa_dp_tb.cu) runs;
+  * ``--engine rspoa`` (``map -p rspoa -D``, exact chaining): the local
+    POA batches ``_dispatch_local_bucket`` receives, one per (V, L)
+    bucket of each stream batch of 8,192 reads, which the one-warp local
+    POA kernel (poa_local_warp.cu) runs at rows up to 256 columns.
+
+Per batch it reports the shape and the real problems' vertex counts nv
+(mean and max), whether every predecessor precedes its vertex, and how
+many distinct vertices each problem reads from farther back than a row
+ring of 8 and of 16 rows, and so how many problems overflow the
+kernel's pinned rows into its backing store (poa_dp_tb.cu's ring of 8
+rows and 4 pins for abPOA, poa_local_warp.cu's for rspoa).  Everything
+here is counted on the host; nothing is timed.
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ K = 11
 READ_LEN = 100
 
 
-def chunk_stats(vpred, nv, n_real: int) -> dict:
-    """Figures of one chunk's real problems (numpy vpred [B,V,P], nv [B])."""
+def chunk_stats(vpred, nv, n_real: int, ring: int = 8, pins: int = 4) -> dict:
+    """Figures of one batch's real problems (numpy vpred [B,V,P], nv [B]);
+    ``backing_problems`` counts those with more far vertices (read from
+    more than ``ring`` rows back) than ``pins``."""
     import numpy as np
     import torch
 
@@ -46,8 +57,63 @@ def chunk_stats(vpred, nv, n_real: int) -> dict:
         "topological": bool((vp[live] < v_ids.expand_as(vp)[live]).all()),
         "far8_max": int(far8.max()), "far8_sum": int(far8.sum()),
         "far16_max": int(far16.max()),
-        "backing_problems": int((PD.backing_rows_plain(vp, nvt) > 0).sum()),
+        "backing_problems": int((PD.backing_rows_plain(vp, nvt, ring, pins) > 0).sum()),
     }
+
+
+class _Recorded(Exception):
+    """Stops ``align_local_batch`` once its buckets are recorded."""
+
+
+def _record_batches(engine: str, index, chains, batch: int, chunks: list) -> None:
+    """Build the engine's POA batches as the CLI does and record each
+    one's ``chunk_stats`` in ``chunks``; no DP runs."""
+    import numpy as np
+    import torch
+
+    from .models.poa_aligner import PoaAligner, PoaEngine
+    from .ops import poa_device as PD
+
+    cpu = torch.device("cpu")
+    if engine == "abpoa":
+        real = PD.kernel_dispatch
+
+        def record(chunk, qs, v_pad, l_pad, device):
+            vcodes, vpred, _sink, nv, _node_of, _off_in = chunk
+            vp = PD._slice_preds(vpred, len(qs))
+            chunks.append(dict(chunk_stats(vp, nv, len(qs), PD.TB_RING, PD.TB_PINS),
+                               W=l_pad + 1, B=vcodes.shape[0]))
+
+        PD.kernel_dispatch = record
+        try:
+            PoaAligner(index, cpu).begin_alignments(chains, 1)
+        finally:
+            PD.kernel_dispatch = real
+        return
+
+    real_dispatch, real_decode = PD._dispatch_local_bucket, PD._decode_local_bucket
+
+    def record_local(bgs, qs, v_pad, l_pad, device):
+        probs = [PD.prepare_problem(bg, q, v_pad, l_pad) for bg, q in zip(bgs, qs)]
+        vp = PD._slice_preds(np.stack([p.vpred for p in probs]))
+        nv = np.asarray([p.nv for p in probs], dtype=np.int32)
+        chunks.append(dict(chunk_stats(vp, nv, len(probs), PD.LOCAL_RING, PD.LOCAL_PINS),
+                           W=l_pad + 1, B=PD._next_pow2(max(len(probs), 4))))
+        return (), bgs, qs
+
+    def stop(*_args):
+        raise _Recorded
+
+    PD._dispatch_local_bucket, PD._decode_local_bucket = record_local, stop
+    try:
+        aligner = PoaAligner(index, cpu, engine=PoaEngine.RSPOA)
+        for s in range(0, len(chains), batch):
+            try:
+                aligner.begin_alignments(chains[s : s + batch], 1)
+            except _Recorded:
+                pass
+    finally:
+        PD._dispatch_local_bucket, PD._decode_local_bucket = real_dispatch, real_decode
 
 
 def main(argv=None) -> dict:
@@ -60,45 +126,35 @@ def main(argv=None) -> dict:
     from .index import Index
     from .io.fastx import QuerySequence
     from .models.mapper import Mapper
-    from .models.poa_aligner import PoaAligner
-    from .ops import poa_device as PD
+    from .models.stream import DEFAULT_BATCH
     from .testing import sample_reads, write_synthetic_gfa
 
     ap = argparse.ArgumentParser(prog="python -m vgaligner_tpu_torch.poa_chunk_stats")
+    ap.add_argument("--engine", choices=["abpoa", "rspoa"], default="abpoa")
     ap.add_argument("--reads", type=int, default=12288)
     ap.add_argument("--backbone", type=int, default=22600)
     ap.add_argument("--json", dest="json_path")
     args = ap.parse_args(argv)
 
-    cpu = torch.device("cpu")
     work = tempfile.mkdtemp(prefix="vg_chunk_stats_")
-    chunks = []
-    real = PD.kernel_dispatch
-
-    def record(chunk, qs, v_pad, l_pad, device):
-        vcodes, vpred, _sink, nv, _node_of, _off_in = chunk
-        vp = PD._slice_preds(vpred, len(qs))
-        chunks.append(dict(chunk_stats(vp, nv, len(qs)), W=l_pad + 1, B=vcodes.shape[0]))
-
+    chunks: list = []
     try:
         gfa = os.path.join(work, "graph.gfa")
         shape = write_synthetic_gfa(gfa, seed=0, backbone_len=args.backbone)
         graph = graph_from_gfa(gfa)
         reads = sample_reads(graph, args.reads, READ_LEN, seed=77)
         index = Index.build(graph, K, 100, 100)
-        mapper = Mapper(index, cpu, bandwidth=50, precision="fast")
+        precision = "fast" if args.engine == "abpoa" else "exact"
+        mapper = Mapper(index, torch.device("cpu"), bandwidth=50, precision=precision)
         chains = mapper.map_reads([QuerySequence(f"read{i}", r) for i, r in enumerate(reads)])
-        PD.kernel_dispatch = record
-        try:
-            PoaAligner(index, cpu).begin_alignments(chains, 1)
-        finally:
-            PD.kernel_dispatch = real
+        _record_batches(args.engine, index, chains, DEFAULT_BATCH, chunks)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     problems = sum(c["problems"] for c in chunks)
     out = {
-        "graph": shape, "reads": args.reads, "chunks": chunks, "problems": problems,
+        "engine": args.engine, "graph": shape, "reads": args.reads, "chunks": chunks,
+        "problems": problems,
         "nv_mean": sum(c["nv_sum"] for c in chunks) / max(problems, 1),
         "topological": all(c["topological"] for c in chunks),
         "far8_max": max((c["far8_max"] for c in chunks), default=0),
@@ -108,12 +164,13 @@ def main(argv=None) -> dict:
     for c in chunks:
         print(f"[chunk] B {c['B']} V {c['V']} W {c['W']} P {c['P']}: {c['problems']} problems, "
               f"nv mean {c['nv_sum'] / c['problems']:.1f} max {c['nv_max']}, far vertices "
-              f"(ring 8) max {c['far8_max']}, (ring 16) max {c['far16_max']}, "
-              f"{c['backing_problems']} over the pins")
-    print(f"[total] {len(chunks)} chunks, {problems} problems, mean nv {out['nv_mean']:.2f}; "
-          f"every predecessor precedes its vertex: {out['topological']}; far vertices per "
-          f"problem, ring 8: max {out['far8_max']}, ring 16: max {out['far16_max']}; "
-          f"{out['backing_problems']} problems take the backing store")
+              f"(ring 8) max {c['far8_max']} sum {c['far8_sum']}, (ring 16) max "
+              f"{c['far16_max']}, {c['backing_problems']} over the pins, topological "
+              f"{c['topological']}")
+    print(f"[total] {args.engine}: {len(chunks)} batches, {problems} problems, mean nv "
+          f"{out['nv_mean']:.2f}; every predecessor precedes its vertex: {out['topological']}; "
+          f"far vertices per problem, ring 8: max {out['far8_max']}, ring 16: max "
+          f"{out['far16_max']}; {out['backing_problems']} problems take the backing store")
     if args.json_path:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_path)), exist_ok=True)
         with open(args.json_path, "w") as fh:

@@ -200,3 +200,43 @@ def _fan_probs(P: int) -> np.ndarray:
     """Fan-in distribution: mostly 1, some 2+, a few pred-less vertices."""
     w = np.array([0.05, 0.7] + [0.25 / (P - 1)] * (P - 1))
     return w / w.sum()
+
+
+def random_local_batch(seed: int, B: int, V: int, P: int, L: int, far_frac: float = 0.2):
+    """Local POA problems (vcodes, vpred, nv, q, nq) from
+    ``random_poa_batch`` with long local matches: each query but problem
+    0's holds a walk back along first predecessors with 5 % of its codes
+    changed, at a random offset; problem 0's query is all N, so it has
+    no positive cell."""
+    vcodes, vpred, _sink, nv, q, nq = random_poa_batch(seed, B, V, P, L, far_frac=far_frac)
+    rng = np.random.default_rng(seed)
+    for b in range(1, B):
+        v, walk = int(rng.integers(nv[b] // 2, nv[b])), []
+        while v >= 0 and len(walk) < nq[b]:
+            walk.append(int(vcodes[b, v]))
+            v = int(vpred[b, v, 0])
+        codes = np.asarray(walk[::-1], dtype=np.int8)
+        mut = rng.random(len(codes)) < 0.05
+        codes[mut] = rng.integers(0, 5, int(mut.sum()))
+        off = int(rng.integers(0, nq[b] - len(codes) + 1))
+        q[b, off : off + len(codes)] = codes
+    q[0] = 4
+    return vcodes, vpred, nv, q, nq
+
+
+def with_local_edge_cases(arrs):
+    """A local POA batch (at least 4 problems of nv >= 8) with the rows a
+    kernel that stops at each problem's own nv must get right: problem 1
+    reads a predecessor at its vertex and one past it, problem 2 has nv
+    far below V (4 rows) and problem 3 none at all."""
+    vcodes, vpred, nv, q, nq = (np.array(a, copy=True) for a in arrs)
+    v = int(nv[1]) // 2
+    vpred[1, v, 0] = v
+    vpred[1, v + 1, vpred.shape[2] - 1] = v + 3 if v + 3 < nv[1] else v + 1
+    nv[2] = 4
+    vcodes[2, 4:] = 4
+    vpred[2, 4:] = -1
+    nv[3] = 0
+    vcodes[3] = 4
+    vpred[3] = -1
+    return vcodes, vpred, nv, q, nq
