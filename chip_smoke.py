@@ -16,8 +16,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
        anchors of real reads) and at A = 16,384 and 65,536; the gap cost
        for g = 0..1000;
        K2 POA DP and K3 traceback on random DAG batches (P in 2/4/8, W in
-       128/256, V in 256/2048), at W 2,048/4,096/8,192 (V 256/2048), and
-       at the main path's chunk shape (1,024 x 256 x 128);
+       128/256, V in 256/2048), at W 2,048/4,096/8,192 (V 256/2048), at
+       W 16,384 (the one width of the CLI's ladder they still take; B 4,
+       timed), and at the main path's chunk shape (1,024 x 256 x 128);
        K6, the POA DP and traceback in one kernel for rows up to 256
        columns, on batches with far predecessors and more far-referenced
        vertices than it pins (its backing store), P 2/4/8 x W 32/128/256,
@@ -25,6 +26,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
        the same CUDA tensors in turns (K2 + K3, K6, K6, K2 + K3); the
        lane-padded contract of the JAX package's VMEM-resident Pallas DP
        (poa_global_kernel, 1,024 x 256, L 100), which K6 now runs;
+       K8, the POA DP and traceback in one kernel for rows of 512-8,192
+       columns, one thread-block cluster a problem, at every width of
+       CLUSTER_WIDTHS x P 2/4/8 (V 256, 128 at W 8,192) and at V 8,192 x W
+       2,048 and W 8,192 x V 1,024, on batches with far predecessors, pin
+       overflow, a predecessor at and past its vertex and nv = 4; its
+       cluster size, clusters resident, shared memory a CTA, and ptxas
+       registers and spills;
        K4 local POA, one block a problem, on random batches (P 2/4/8, W
        128/256/2048, V 256/2048, problems with no positive cell and
        nv < V);
@@ -56,18 +64,19 @@ Phases, one line each; any failure raises and the exit code is not 0:
      their wrappers and as the kernel alone on buffers allocated once;
   6. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
-     K2 and K3, not K6, and a subgraph over 8,192 vertices on the native
-     host POA), card and ``--device cpu`` byte-identical; K2 and K3 are
-     then held against their twins and timed on the largest chunk that
-     run gave them; then ``map -p rspoa -D -G --precision exact`` over
+     K8, not K2, K3 or K6, and a subgraph over 8,192 vertices on the
+     native host POA), card and ``--device cpu`` byte-identical; K8, K2
+     and K3 are then held against their twins on the largest chunk that
+     run gave K8, and timed there in turns (K2 + K3, K8, K8, K2 + K3);
+     then ``map -p rspoa -D -G --precision exact`` over
      the same reads (local POA rows over 256 columns: K4 and K5
      launched, K7 not), the first LONG_CPU_SAMPLE reads byte-identical
      to ``--device cpu``, and K4 held against its twin and timed on the
      largest batch that run gave it.
 Every CLI phase resets the launch counters just before its run and
 reads them just after; a kernel's ``launches`` are those of the path
-that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K2 and K3: long
-reads, abPOA; K4: long reads, rspoa).
+that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K8: long reads,
+abPOA, where K2 and K3 now launch no time; K4: long reads, rspoa).
 
 Then one JSON line of per-kernel results and, last, the device line.
 Each kernel's ``bound_ms`` is the larger of the bytes it must move
@@ -468,6 +477,11 @@ def phase_poa_kernels(dev, results):
     for W in (2048, 4096, 8192):
         for V, B in ((256, 64), (2048, 64 if W < 8192 else 32)):
             run_batch(200 + W + V, B, V, 2, W)
+    # rows of 16,384 columns (reads of 8,192-16,383 bp), which only K2 + K3 take
+    t16, init16, tb16, k16 = run_batch(220, 4, 128, 4, 16384)
+    k2_16 = _cuda_ms(lambda: PD.poa_dp(*t16, init16), 5)
+    k3_16 = _cuda_ms(lambda: PD.poa_traceback(tb16, t16[1], k16, t16[5]), 5)
+    print(f"[kernels] W 16,384 (B 4, V 128, P 4): K2 {k2_16:.4f} ms, K3 {k3_16:.4f} ms")
     t, init, tbits, sinks = run_batch(7, 1024, 256, 2, 128)
     plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
     plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
@@ -498,15 +512,16 @@ def phase_poa_kernels(dev, results):
     return t, init
 
 
-def _fused_check(t, init, label, errs):
-    """K6 against poa_dp_plain + poa_traceback_plain on the same CUDA
-    tensors: score, best_sink, tape, tlen and tbits below nv bit for bit,
-    and n_backing equal to backing_rows_plain.  Returns n_backing."""
+def _fused_check(t, init, label, errs, fused=None):
+    """K6 (or ``fused``, K8) against poa_dp_plain + poa_traceback_plain on
+    the same CUDA tensors: score, best_sink, tape, tlen and tbits below nv
+    bit for bit, and n_backing equal to backing_rows_plain.  Returns
+    n_backing."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
-    score, sink, tbits, tape, tlen, n_backing = PD.poa_dp_tb(*t, init)
+    score, sink, tbits, tape, tlen, n_backing = (fused or PD.poa_dp_tb)(*t, init)
     torch.cuda.synchronize()
     ws, wk, wtb = PD.poa_dp_plain(*t, init)
     wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
@@ -519,16 +534,18 @@ def _fused_check(t, init, label, errs):
     return n_backing
 
 
-def _time_in_turns(t, init, reps=10):
-    """K2 + K3 and K6 on the same CUDA tensors, after a warm-up, in turns
-    K2 + K3, K6, K6, K2 + K3: lists of K2, K3 and K6 ms, two turns each."""
+def _time_in_turns(t, init, reps=10, fused=None):
+    """K2 + K3 and a fused kernel (K6, or ``fused``) on the same CUDA
+    tensors, after a warm-up, in turns K2 + K3, fused, fused, K2 + K3:
+    lists of K2, K3 and fused ms, two turns each."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
+    fused = fused or PD.poa_dp_tb
     _s, sinks, tbits = PD.poa_dp(*t, init)
     PD.poa_traceback(tbits, t[1], sinks, t[5])
-    PD.poa_dp_tb(*t, init)
+    fused(*t, init)
     torch.cuda.synchronize()
     k2, k3, k6 = [], [], []
     for turn in ("old", "new", "new", "old"):
@@ -536,12 +553,12 @@ def _time_in_turns(t, init, reps=10):
             k2.append(_cuda_ms(lambda: PD.poa_dp(*t, init), reps))
             k3.append(_cuda_ms(lambda: PD.poa_traceback(tbits, t[1], sinks, t[5]), reps))
         else:
-            k6.append(_cuda_ms(lambda: PD.poa_dp_tb(*t, init), reps))
+            k6.append(_cuda_ms(lambda: fused(*t, init), reps))
     return k2, k3, k6
 
 
-def _turns_line(k2, k3, k6):
-    return (f"K2 + K3 {k2[0]:.4f} + {k3[0]:.4f}, K6 {k6[0]:.4f}, K6 {k6[1]:.4f}, "
+def _turns_line(k2, k3, k6, name="K6"):
+    return (f"K2 + K3 {k2[0]:.4f} + {k3[0]:.4f}, {name} {k6[0]:.4f}, {name} {k6[1]:.4f}, "
             f"K2 + K3 {k2[1]:.4f} + {k3[1]:.4f} ms")
 
 
@@ -584,6 +601,45 @@ def phase_fused_kernel(dev, results, main_t, main_init):
     print(f"[kernels] 1024x256x128 P=2 in turns: {_turns_line(k2, k3, k6)}; K6 plain pair "
           f"{plain:.3f} ms, bound {results['poa_dp_tb']['bound_ms']:.4f} ms "
           f"({results['poa_dp_tb']['bound_by']})")
+
+
+def phase_cluster_kernel(dev, results):
+    """K8 at every width of CLUSTER_WIDTHS x P 2/4/8 on far and near
+    batches (far predecessors, pin overflow, a predecessor at and past its
+    vertex, nv = 4), at V 8,192 x W 2,048, and at W 8,192 x V 1,024; its
+    cluster occupancy and ptxas report."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import random_poa_batch, with_poa_edge_cases
+
+    errs, on_backing = [], 0
+    cases = [(P, W, 256 if W < 8192 else 128, 8) for W in PD.CLUSTER_WIDTHS for P in (2, 4, 8)]
+    cases += [(2, 2048, 8192, 8), (2, 8192, 1024, 8)]
+    for P, W, V, B in cases:
+        seed = 700 + P + W + V
+        far = with_poa_edge_cases(random_poa_batch(seed, B - 2, V, P, W - 1, far_frac=0.3),
+                                  empty=False)
+        near = random_poa_batch(seed + 1, 2, V, P, W - 1, far_frac=0.0)
+        t = [torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(far, near)]
+        init = torch.from_numpy(PD.make_init_row(W - 1)).to(dev)
+        nb = _fused_check(t, init, f"poa_dp_tb_cluster P={P} W={W} V={V}", errs,
+                          PD.poa_dp_tb_cluster).cpu()
+        if not bool((nb[: B - 2] > 0).any()) or bool((nb[B - 2 :] != 0).any()):
+            raise AssertionError(f"poa_dp_tb_cluster P={P} W={W} V={V}: batch lacks its edge "
+                                 "cases")
+        on_backing += int((nb > 0).sum())
+        ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, W, V)
+        print(f"[kernels] poa_dp_tb_cluster (K8) P={P} W={W} V={V} B={B}: equal to the plain "
+              f"pair; {int((nb > 0).sum())} problems on the backing store (max {int(nb.max())} "
+              f"rows); {ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared "
+              "memory a CTA")
+    regs = _ptxas(kernels.build_log, "poa_dp_tb_cluster_kernel")
+    print(f"[kernels] K8: {on_backing} problems of the grid on the backing store; ptxas (P: "
+          "registers, spill store/load bytes): " + "; ".join(
+              f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
+    results["poa_dp_tb_cluster"] = dict(max_abs_err=max(errs))
 
 
 def _plain_pair(t, init):
@@ -783,7 +839,8 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
     try:
         took, launches = _drive("the main path", prefix, fasta, gfa, out,
                                 ["-p", "abpoa", "--precision", "auto"],
-                                ("chain_dp", "poa_dp_tb"), ("poa_dp", "poa_traceback"))
+                                ("chain_dp", "poa_dp_tb"),
+                                ("poa_dp", "poa_traceback", "poa_dp_tb_cluster"))
     finally:
         PD.poa_dp_tb = real
     if launches["poa_dp_tb"] != MAIN_CHUNKS:
@@ -894,7 +951,7 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
         took, launches = _drive("the rspoa path", prefix, fasta, gfa, out,
                                 ["-p", "rspoa", "--precision", "exact"],
                                 ("chain_dp_exact", "poa_local_warp"),
-                                ("chain_dp", "poa_dp", "poa_local"))
+                                ("chain_dp", "poa_dp", "poa_local", "poa_dp_tb_cluster"))
     finally:
         PD.poa_local = real
     print(f"[rspoa] map -p rspoa -D --precision exact on {N_READS} reads: {took:.2f} s, "
@@ -946,18 +1003,15 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
 
 def phase_long_reads(work, prefix, gfa, graph, card, results):
     from vgaligner_tpu_torch.ops import poa_device as PD
-    from vgaligner_tpu_torch.testing import sample_reads, write_fasta
+    from vgaligner_tpu_torch.testing import long_reads, write_fasta
 
-    rng = np.random.default_rng(3)
-    lens = [int(x) for x in rng.integers(1500, 2101, N_LONG)] + [10000]
-    reads = [sample_reads(graph, 1, n, seed=1000 + i, sub_rate=0.01)[0]
-             for i, n in enumerate(lens)]
+    reads = long_reads(graph, N_LONG)
     fasta = os.path.join(work, "long.fa")
     write_fasta(fasta, reads)
     out = os.path.join(work, "long-card", "smoke")
     argv = ["-p", "abpoa", "--precision", "fast"]
     captured = {}
-    real = PD.poa_dp
+    real = PD.poa_dp_tb_cluster
 
     def keep_largest(*args):
         work_ = int(args[3].sum()) * args[4].shape[1]
@@ -965,12 +1019,13 @@ def phase_long_reads(work, prefix, gfa, graph, card, results):
             captured.update(args=args, work=work_)
         return real(*args)
 
-    PD.poa_dp = keep_largest
+    PD.poa_dp_tb_cluster = keep_largest
     try:
         took, launches = _drive("the long-read path", prefix, fasta, gfa, out, argv,
-                                ("chain_dp", "poa_dp", "poa_traceback"), ("poa_dp_tb",))
+                                ("chain_dp", "poa_dp_tb_cluster"),
+                                ("poa_dp", "poa_traceback", "poa_dp_tb"))
     finally:
-        PD.poa_dp = real
+        PD.poa_dp_tb_cluster = real
     n_chains, mapped = _check_gaf(out, len(reads),
                                   {f"read{i}": len(r) for i, r in enumerate(reads)})
     cpu_out = os.path.join(work, "long-cpu", "smoke")
@@ -1011,7 +1066,7 @@ def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
         took, launches = _drive("the long-read rspoa path", prefix, fasta, gfa, out, argv,
                                 ("chain_dp_exact", "poa_local"),
                                 ("poa_local_warp", "chain_dp", "poa_dp", "poa_traceback",
-                                 "poa_dp_tb"))
+                                 "poa_dp_tb", "poa_dp_tb_cluster"))
     finally:
         PD.poa_local = real
     _n_chains, mapped = _check_gaf(out, len(reads),
@@ -1041,19 +1096,21 @@ def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
 
 
 def _long_chunk_kernels(args, card, results):
-    """K2 and K3 on the long-read path's largest chunk: held against the
-    twins (score, best_sink, tbits below nv; tape and tlen), timed, and
-    bounded from that chunk."""
+    """K8, and K2 + K3, on the long-read path's largest chunk: held against
+    the twins (score, best_sink, tbits below nv; tape and tlen), timed in
+    turns (K2 + K3, K8, K8, K2 + K3), and bounded from that chunk."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     t, init = args[:6], args[6]
+    errs, errs8 = [], []
+    nb = _fused_check(t, init, "poa_dp_tb_cluster on the long reads' largest chunk", errs8,
+                      PD.poa_dp_tb_cluster)
     score, sinks, tbits = PD.poa_dp(*t, init)
     tape, tlen = PD.poa_traceback(tbits, t[1], sinks, t[5])
     torch.cuda.synchronize()
     ws, wk, wtb = PD.poa_dp_plain(*t, init)
-    errs = []
     _check_equal("poa_dp on the long reads' largest chunk", ("score", "best_sink"),
                  (score, sinks), (ws, wk), errs)
     below_nv = torch.arange(tbits.shape[1], device=tbits.device)[None, :] < t[3][:, None]
@@ -1062,21 +1119,32 @@ def _long_chunk_kernels(args, card, results):
     wtape, wtl = PD.poa_traceback_plain(tbits, t[1], sinks, t[5])
     _check_equal("poa_traceback on the long reads' largest chunk", ("tape", "tlen"),
                  (tape, tlen), (wtape, wtl), errs)
-    k2 = _cuda_ms(lambda: PD.poa_dp(*t, init), 10)
-    k3 = _cuda_ms(lambda: PD.poa_traceback(tbits, t[1], sinks, t[5]), 10)
+    k2, k3, k8 = _time_in_turns(t, init, fused=PD.poa_dp_tb_cluster)
     plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
     plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
     B, V, W = tbits.shape
-    results["poa_dp"].update(ms=k2, plain_ms=plain_dp,
+    P = t[1].shape[-1]
+    dp_bytes, dp_ops = _poa_dp_work(t)
+    tb_bytes, tb_ops = _walk_work(tlen, B, V, W, False)
+    results["poa_dp"].update(ms=sum(k2) / 2, plain_ms=plain_dp,
                              max_abs_err=max(results["poa_dp"]["max_abs_err"], *errs),
-                             **_bound_keys(*_poa_dp_work(t), F32_OPS_PER_S))
-    results["poa_traceback"].update(ms=k3, plain_ms=plain_tb,
+                             **_bound_keys(dp_bytes, dp_ops, F32_OPS_PER_S))
+    results["poa_traceback"].update(ms=sum(k3) / 2, plain_ms=plain_tb,
                                     **_bound_keys(*_walk_work(tlen, B, V, W), F32_OPS_PER_S))
-    print(f"[long] largest chunk B={B} V={V} W={W} P={t[1].shape[-1]} mean nv "
-          f"{float(t[3].float().mean()):.1f}: K2 and K3 equal to the twins; K2 {k2:.4f} ms "
-          f"(bound {results['poa_dp']['bound_ms']:.4f}, {results['poa_dp']['bound_by']}; plain "
-          f"{plain_dp:.3f}), K3 {k3:.4f} ms (bound {results['poa_traceback']['bound_ms']:.4f}, "
-          f"{results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}) ({card})")
+    results["poa_dp_tb_cluster"].update(
+        ms=sum(k8) / 2, plain_ms=plain_dp + plain_tb,
+        max_abs_err=max(results["poa_dp_tb_cluster"]["max_abs_err"], *errs8),
+        **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
+    ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, W, V)
+    k8r = results["poa_dp_tb_cluster"]
+    print(f"[long] largest chunk B={B} V={V} W={W} P={P} mean nv {float(t[3].float().mean()):.1f} "
+          f"(max {int(t[3].max())}), {int((nb > 0).sum())} problems on K8's backing store: K8, K2 "
+          f"and K3 equal to the twins; in turns {_turns_line(k2, k3, k8, 'K8')}; K8 bound "
+          f"{k8r['bound_ms']:.4f} ({k8r['bound_by']}), {ctas} CTAs a cluster, {B * ctas} CTAs, "
+          f"{clusters} clusters resident, {smem} B shared memory a CTA; K2 bound "
+          f"{results['poa_dp']['bound_ms']:.4f} ({results['poa_dp']['bound_by']}; plain "
+          f"{plain_dp:.3f}), K3 bound {results['poa_traceback']['bound_ms']:.4f} "
+          f"({results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}) ({card})")
 
 
 def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa):
@@ -1084,13 +1152,15 @@ def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_
     path that runs it and its measured and bound times."""
     k2_replaces = "vgaligner_tpu/ops/poa_pallas2.py:434, vgaligner_tpu/ops/poa_pallas.py:258"
     k3_replaces = "vgaligner_tpu/ops/poa_device.py:325"
+    other = "(rows of 16,384 columns, and lane-padded widths off the power-of-two ladder)"
     sources = {
         "chain_dp": ("chain_dp.cu", "vgaligner_tpu/ops/chain_pallas.py:187", launches),
-        "poa_dp": ("poa_dp.cu", f"{k2_replaces} (rows over 256 columns)", launches_long),
-        "poa_traceback": ("poa_traceback.cu", f"{k3_replaces} (rows over 256 columns)",
-                          launches_long),
+        "poa_dp": ("poa_dp.cu", f"{k2_replaces} {other}", launches_long),
+        "poa_traceback": ("poa_traceback.cu", f"{k3_replaces} {other}", launches_long),
         "poa_dp_tb": ("poa_dp_tb.cu", f"{k2_replaces}, {k3_replaces} (rows up to 256 "
                       "columns)", launches),
+        "poa_dp_tb_cluster": ("poa_dp_tb_cluster.cu", f"{k2_replaces}, {k3_replaces} (rows of "
+                              "512-8,192 columns)", launches_long),
         "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows over 256 "
                       "columns)", launches_long_rspoa),
         "poa_local_warp": ("poa_local_warp.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows up "
@@ -1141,6 +1211,7 @@ def main() -> int:
         phase_chain_kernels(index, reads, dev, results)
         main_t, main_init = phase_poa_kernels(dev, results)
         phase_fused_kernel(dev, results, main_t, main_init)
+        phase_cluster_kernel(dev, results)
         phase_local_kernel(dev, results)
         phase_local_warp_kernel(dev, results)
         launches = phase_main_path(work, prefix, gfa, fasta, reads, card, results)

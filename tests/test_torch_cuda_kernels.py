@@ -15,7 +15,8 @@ import torch
 from vgaligner_tpu_torch.ops import chain as C
 from vgaligner_tpu_torch.ops import poa_device as PD
 from vgaligner_tpu_torch.testing import (random_local_batch, random_poa_batch, sample_reads,
-                                         with_local_edge_cases, write_synthetic_gfa)
+                                         with_local_edge_cases, with_poa_edge_cases,
+                                         write_synthetic_gfa)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_device")]
 K = 11
@@ -114,6 +115,71 @@ def test_poa_dp_tb_kernel_matches_plain(cuda_device, P, W, V):
 def test_poa_dp_tb_kernel_main_shape(cuda_device):
     """The main path's chunk shape: 1,024 problems x V 256 x W 128, P 2."""
     _fused_matches_plain(cuda_device, random_poa_batch(7, 1024, 256, 2, 127))
+
+
+def _cluster_matches_plain(dev, arrs):
+    """poa_dp_tb_cluster's kernel against poa_dp_plain +
+    poa_traceback_plain on the same CUDA tensors, bit for bit, through
+    ``dp_and_traceback`` (which must route there); returns n_backing."""
+    W = arrs[4].shape[1] + 1
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(W - 1)).to(dev)
+    before = PD.kernels.launch_counts()
+    score, tape, tlen = PD.dp_and_traceback(*t, init)
+    after = PD.kernels.launch_counts()
+    assert after["poa_dp_tb_cluster"] == before["poa_dp_tb_cluster"] + 1
+    assert after["poa_dp"] == before["poa_dp"] and after["poa_dp_tb"] == before["poa_dp_tb"]
+    _s, sink, tbits, _tape, _tlen, n_backing = PD.poa_dp_tb_cluster(*t, init)
+    ws, wk, wtb = PD.poa_dp_plain(*t, init)
+    wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
+    assert torch.equal(score, ws) and torch.equal(sink, wk)
+    for b, n in enumerate(arrs[3]):
+        assert torch.equal(tbits[b, :n], wtb[b, :n])
+    assert torch.equal(tlen, wtl) and torch.equal(tape, wtape)
+    assert torch.equal(n_backing, PD.backing_rows_plain(t[1], t[3]))
+    return n_backing.cpu()
+
+
+@pytest.mark.parametrize("P,W,V", [(2, 512, 256), (4, 1024, 128), (8, 2048, 128), (2, 4096, 96),
+                                   (4, 8192, 64), (2, 2048, 8192)])
+def test_poa_dp_tb_cluster_kernel_matches_plain(cuda_device, P, W, V):
+    """Every width of CLUSTER_WIDTHS (1-16 CTAs a cluster), V 8,192 at W
+    2,048: far predecessors beyond the row ring, problems over the pin
+    budget (the backing store), a predecessor at and past its vertex, nv
+    far below V, and problems within the ring."""
+    far = with_poa_edge_cases(random_poa_batch(P * W + V, 6, V, P, W - 1, far_frac=0.3),
+                              empty=False)
+    near = random_poa_batch(P * W + V + 1, 2, V, P, W - 1, far_frac=0.0)
+    n_backing = _cluster_matches_plain(cuda_device, [np.concatenate(x) for x in zip(far, near)])
+    assert (n_backing[:6] > 0).any() and (n_backing[6:] == 0).all()
+
+
+def test_long_reads_take_the_cluster_kernel(cuda_device, tmp_path):
+    """Reads of 600-2,000 bp (rows of 1,024 and 2,048 columns) through the
+    abPOA aligner: the cluster kernel, never K2/K3, and the CPU path's
+    alignments."""
+    from vgaligner_tpu_torch.graph import graph_from_gfa
+    from vgaligner_tpu_torch.index import Index
+    from vgaligner_tpu_torch.io.fastx import QuerySequence
+    from vgaligner_tpu_torch.models.mapper import Mapper
+    from vgaligner_tpu_torch.models.poa_aligner import PoaAligner, PoaEngine
+
+    gfa = str(tmp_path / "g.gfa")
+    write_synthetic_gfa(gfa, seed=5, backbone_len=6000, n_haplotypes=4)
+    graph = graph_from_gfa(gfa)
+    index = Index.build(graph, K, 100, 100)
+    qs = [QuerySequence(name=f"r{i}", seq=sample_reads(graph, 1, n, seed=40 + i, sub_rate=0.01)[0])
+          for i, n in enumerate((600, 1500, 2000))]
+    out = []
+    PD.kernels.reset_launch_counts()
+    for d in (cuda_device, torch.device("cpu")):
+        chains = Mapper(index, d, precision="fast").map_reads(qs)
+        alns = PoaAligner(index, d, engine=PoaEngine.ABPOA).best_alignments_for_queries(chains)
+        out.append("".join(a.to_string() for a in alns))
+    assert out[0] == out[1]
+    launches = PD.kernels.launch_counts()
+    assert launches["poa_dp_tb_cluster"] >= 2
+    assert launches["poa_dp"] == launches["poa_traceback"] == launches["poa_dp_tb"] == 0
 
 
 @pytest.mark.parametrize("P,W,V", [(2, 128, 256), (4, 256, 512), (8, 2048, 128)])

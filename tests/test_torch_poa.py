@@ -140,19 +140,21 @@ def test_fused_route_matches_jax(P, W):
 def test_fused_route_takes_rows_up_to_256():
     assert PD.TB_WIDTHS == (32, 64, 128, 256)
     calls = []
-    real_tb, real_dp = PD.poa_dp_tb, PD.poa_dp
+    real_tb, real_cl, real_dp = PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp
 
     def spy(name, fn):
         return lambda *a: calls.append(name) or fn(*a)
 
     PD.poa_dp_tb, PD.poa_dp = spy("tb", real_tb), spy("dp", real_dp)
+    PD.poa_dp_tb_cluster = spy("cluster", real_cl)
     try:
-        for W in (128, 256, 512):
+        for W in (128, 256, 384, 512):
             arrs = [torch.from_numpy(a) for a in random_poa_batch(W, 2, 32, 2, W - 1)]
             PD.dp_and_traceback(*arrs, torch.from_numpy(PD.make_init_row(W - 1)))
     finally:
-        PD.poa_dp_tb, PD.poa_dp = real_tb, real_dp
-    assert calls == ["tb", "tb", "dp"]
+        PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp = real_tb, real_cl, real_dp
+    # wider rows: 512-8,192 columns on the cluster kernel, other widths on K2 + K3
+    assert calls == ["tb", "tb", "dp", "cluster"]
 
 
 def test_slice_preds_matches_jax():

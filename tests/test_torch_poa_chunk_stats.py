@@ -63,8 +63,27 @@ def test_census_of_the_rspoa_path_at_a_small_size(tmp_path):
     assert out["backing_problems"] <= out["problems"]
 
 
+def test_census_of_the_long_reads_at_a_small_size(tmp_path):
+    """``--long``: the first reads of chip_smoke.py's long reads, whose
+    rows of 2,048 columns the cluster kernel takes; backing rows are
+    counted at its ring of 8 and 4 pins."""
+    path = tmp_path / "long.json"
+    out = poa_chunk_stats.main(["--long", "--reads", "3", "--backbone", "3000",
+                                "--json", str(path)])
+    assert json.loads(path.read_text()) == json.loads(json.dumps(out))
+    assert out["long"] and out["reads"] == 3 and out["problems"] >= 3
+    for c in out["chunks"]:
+        assert c["W"] in PD.CLUSTER_WIDTHS and c["V"] >= 2048 and c["B"] >= c["problems"]
+        assert 1500 <= c["nv_sum"] / c["problems"] <= c["V"]
+        assert c["backing_rows_max"] <= c["backing_rows_sum"]
+    assert out["topological"]
+    assert out["backing_rows"] == sum(c["backing_rows_sum"] for c in out["chunks"])
+
+
 def test_chunk_stats_backing_follows_ring_and_pins():
     _vc, vpred, _sink, nv, _q, _nq = random_poa_batch(9, 8, 128, 4, 63, far_frac=0.3)
     far16 = _far_by_hand(vpred, nv, 16)
     st = poa_chunk_stats.chunk_stats(vpred, nv, 8, ring=16, pins=2)
     assert st["backing_problems"] == sum(f > 2 for f in far16)
+    assert st["backing_rows_sum"] == sum(max(0, f - 2) for f in far16)
+    assert st["backing_rows_max"] == max(max(0, f - 2) for f in far16)

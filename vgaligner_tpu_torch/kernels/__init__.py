@@ -1,7 +1,8 @@
 """Build, bind and count the port's CUDA kernels.
 
 The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
-traceback, the fused POA DP + traceback for rows up to 256 columns,
+traceback, the fused POA DP + traceback for rows up to 256 columns and,
+one thread-block cluster a problem, for rows of 512-8,192 columns,
 local POA, and local POA one warp a problem for rows up to 256
 columns) are compiled by ``nvcc`` for ``sm_90a``, one
 process per source, all started together, and linked into one shared
@@ -36,7 +37,7 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp.cu", "poa_traceback.cu",
-           "poa_dp_tb.cu", "poa_local.cu", "poa_local_warp.cu")
+           "poa_dp_tb.cu", "poa_dp_tb_cluster.cu", "poa_local.cu", "poa_local_warp.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -44,7 +45,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp": 0, "poa_traceback": 0,
-            "poa_dp_tb": 0, "poa_local": 0, "poa_local_warp": 0, "chain_gap_cost": 0}
+            "poa_dp_tb": 0, "poa_dp_tb_cluster": 0, "poa_local": 0, "poa_local_warp": 0,
+            "chain_gap_cost": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -165,6 +167,10 @@ def lib() -> ctypes.CDLL:
         so.vg_poa_dp_tb.restype = ci
         so.vg_poa_dp_tb_occupancy.argtypes = [ci, ci, ci, vp]
         so.vg_poa_dp_tb_occupancy.restype = ci
+        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        so.vg_poa_dp_tb_cluster.restype = ci
+        so.vg_poa_dp_tb_cluster_occupancy.argtypes = [ci, ci, ci, vp]
+        so.vg_poa_dp_tb_cluster_occupancy.restype = ci
         so.vg_cuda_error_string.argtypes = [ci]
         so.vg_cuda_error_string.restype = ctypes.c_char_p
         _lib = so

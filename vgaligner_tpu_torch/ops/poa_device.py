@@ -6,12 +6,15 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
   * global (abPOA): problem arrays come from the native builder; each
     ladder-padded chunk runs the POA DP and its traceback.  Rows of up to
     256 columns (reads up to 255 bp) take ``poa_dp_tb``, one CUDA kernel
-    for both (kernels/csrc/poa_dp_tb.cu); wider rows take ``poa_dp``
-    (kernels/csrc/poa_dp.cu) and then ``poa_traceback``
-    (kernels/csrc/poa_traceback.cu).  On the CPU every route runs the
-    plain twins ``poa_dp_plain`` and ``poa_traceback_plain``.  Each
-    chunk's tape comes back sliced to its longest walk and the native
-    runtime decodes it into cigar/cs/node paths.  ``poa_global_kernel``
+    for both, one warp a problem (kernels/csrc/poa_dp_tb.cu); rows of
+    512-8,192 columns take ``poa_dp_tb_cluster``, one kernel for both,
+    one thread-block cluster a problem (kernels/csrc/poa_dp_tb_cluster.cu);
+    other widths take ``poa_dp`` (kernels/csrc/poa_dp.cu) and then
+    ``poa_traceback`` (kernels/csrc/poa_traceback.cu).  On the CPU every
+    route runs the plain twins ``poa_dp_plain`` and
+    ``poa_traceback_plain``.  Each chunk's tape comes back sliced to its
+    longest walk and the native runtime decodes it into cigar/cs/node
+    paths.  ``poa_global_kernel``
     runs the same DP under the lane-padded contract of the JAX package's
     Pallas kernel ``poa_dp_pallas``.
   * local gapless (rspoa): ``align_local_batch`` builds problems with
@@ -31,6 +34,7 @@ Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -440,6 +444,14 @@ def backing_rows_plain(vpred, nv, ring: int = TB_RING, pins: int = TB_PINS):
     return (far_vertices_plain(vpred, nv, ring) - pins).clamp_min(0).to(torch.int32)
 
 
+def _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row):
+    """The fused kernels' CPU route: ``poa_dp_plain``, then
+    ``poa_traceback_plain``, and the backing rows of their plan."""
+    score, best_sink, tbits = poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
+    tape, tlen = poa_traceback_plain(tbits, vpred, best_sink, nq)
+    return score, best_sink, tbits, tape, tlen, backing_rows_plain(vpred, nv)
+
+
 def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row):
     """POA DP and traceback: one CUDA kernel for CUDA tensors (rows of W
     = L + 1 in TB_WIDTHS), ``poa_dp_plain`` then ``poa_traceback_plain``
@@ -449,9 +461,7 @@ def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row):
     the rows each problem kept in the kernel's backing store
     (``backing_rows_plain``)."""
     if vcodes.device.type == "cpu":
-        score, best_sink, tbits = poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
-        tape, tlen = poa_traceback_plain(tbits, vpred, best_sink, nq)
-        return score, best_sink, tbits, tape, tlen, backing_rows_plain(vpred, nv)
+        return _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
     B, V, P, L = _check_dp_inputs("poa_dp_tb", vcodes, vpred, is_sink, nv, q, nq, init_row)
     W = L + 1
     if W not in TB_WIDTHS:
@@ -488,12 +498,73 @@ def poa_dp_tb_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
     return out[0], out[1], out[2]
 
 
+# ---------------------------------------------------------------------------
+# POA DP and traceback in one kernel, one thread-block cluster a problem
+# (rows of 512-8,192 columns)
+
+CLUSTER_SLICE = 512  # poa_dp_tb_cluster.cu's columns a CTA
+CLUSTER_WIDTHS = (512, 1024, 2048, 4096, 8192)  # W = 512 N, N = 1/2/4/8/16 CTAs a cluster
+
+
+def poa_dp_tb_cluster(vcodes, vpred, is_sink, nv, q, nq, init_row):
+    """POA DP and traceback: one CUDA kernel, one thread-block cluster a
+    problem, for CUDA tensors (rows of W = L + 1 in CLUSTER_WIDTHS), the
+    plain pair for CPU tensors.  Same arguments and outputs as
+    ``poa_dp_tb`` (n_backing at its ring and pins).  Raises where the card
+    cannot keep one cluster of this shape resident."""
+    if vcodes.device.type == "cpu":
+        return _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
+    B, V, P, L = _check_dp_inputs("poa_dp_tb_cluster", vcodes, vpred, is_sink, nv, q, nq,
+                                  init_row)
+    W = L + 1
+    if W not in CLUSTER_WIDTHS:
+        raise ValueError(f"poa_dp_tb_cluster: unsupported row width W={W} {CLUSTER_WIDTHS}")
+    ctas, clusters, smem = poa_dp_tb_cluster_occupancy(P, W, V)
+    if clusters <= 0:
+        raise RuntimeError(f"poa_dp_tb_cluster: no cluster of {ctas} CTAs with {smem} B of "
+                           f"shared memory each can be resident (P={P}, W={W}, V={V})")
+    dev = vcodes.device
+    # never zeroed; only the rows of n_backing are written and read
+    backing = torch.empty((B, V, 3 * W), dtype=torch.float32, device=dev)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    best_sink = torch.empty(B, dtype=torch.int32, device=dev)
+    tbits = torch.empty((B, V, W), dtype=torch.int32, device=dev)
+    tape = torch.empty((B, V + W + 1), dtype=torch.int32, device=dev)
+    tlen = torch.empty(B, dtype=torch.int32, device=dev)
+    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    so = kernels.lib()
+    kernels.LAUNCHES["poa_dp_tb_cluster"] += 1
+    kernels.check(
+        so.vg_poa_dp_tb_cluster(vcodes.data_ptr(), vpred.data_ptr(), is_sink.data_ptr(),
+                                nv.data_ptr(), q.data_ptr(), nq.data_ptr(), init_row.data_ptr(),
+                                B, V, P, L, backing.data_ptr(), score.data_ptr(),
+                                best_sink.data_ptr(), tbits.data_ptr(), tape.data_ptr(),
+                                tlen.data_ptr(), n_backing.data_ptr(), kernels.stream_ptr(dev)),
+        "poa_dp_tb_cluster",
+    )
+    return score, best_sink, tbits, tape, tlen, n_backing
+
+
+@functools.lru_cache(maxsize=None)
+def poa_dp_tb_cluster_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
+    """(CTAs a cluster, clusters the card keeps resident at once, dynamic
+    shared memory per CTA in bytes) of ``poa_dp_tb_cluster``'s kernel at
+    this shape, from the CUDA occupancy calculator.  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.lib().vg_poa_dp_tb_cluster_occupancy(P, W, V, ctypes.addressof(out)),
+                  "poa_dp_tb_cluster_occupancy")
+    return out[0], out[1], out[2]
+
+
 def dp_and_traceback(vcodes, vpred, is_sink, nv, q, nq, init_row):
     """(score, tape, tlen) of one batch: ``poa_dp_tb`` for rows of W in
-    TB_WIDTHS, else ``poa_dp`` then ``poa_traceback``."""
-    if q.shape[1] + 1 in TB_WIDTHS:
-        score, _sink, _tbits, tape, tlen, _nb = poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq,
-                                                          init_row)
+    TB_WIDTHS, ``poa_dp_tb_cluster`` for W in CLUSTER_WIDTHS, else
+    ``poa_dp`` then ``poa_traceback``."""
+    W = q.shape[1] + 1
+    if W in TB_WIDTHS or W in CLUSTER_WIDTHS:
+        fused = poa_dp_tb if W in TB_WIDTHS else poa_dp_tb_cluster
+        score, _sink, _tbits, tape, tlen, _nb = fused(vcodes, vpred, is_sink, nv, q, nq,
+                                                      init_row)
         return score, tape, tlen
     score, best_sink, tbits = poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row)
     tape, tlen = poa_traceback(tbits, vpred, best_sink, nq)

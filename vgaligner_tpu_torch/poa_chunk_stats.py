@@ -1,15 +1,20 @@
 """What the POA batches of a CLI run ask of the row-ring POA kernels.
 
     python -m vgaligner_tpu_torch.poa_chunk_stats [--engine abpoa|rspoa]
-        [--reads 12288] [--backbone 22600] [--json PATH]
+        [--long] [--reads N] [--backbone 22600] [--json PATH]
 
 Maps chip_smoke.py's reads (``write_synthetic_gfa`` seed 0, k = 11, 100
-bp reads from bench.py's sampler, seed 77) on the CPU and builds the POA
-problem batches exactly as the CLI does, without running the DP:
+bp reads from bench.py's sampler, seed 77; with ``--long``, its long
+reads: 64 of 1,500-2,100 bp and one of 10 kb, ``testing.long_reads``)
+on the CPU and builds the POA problem batches exactly as the CLI does,
+without running the DP; ``--reads`` takes the first N of them (12,288
+and 65 by default):
 
   * ``--engine abpoa`` (``map -p abpoa -D``, fast chaining): the chunks
-    ``kernel_dispatch`` receives, which the fused DP + traceback kernel
-    (poa_dp_tb.cu) runs;
+    ``kernel_dispatch`` receives, which the fused DP + traceback kernels
+    run (poa_dp_tb.cu up to 256 columns, poa_dp_tb_cluster.cu at
+    512-8,192; a subgraph over 8,192 vertices takes the host POA and is
+    in no chunk);
   * ``--engine rspoa`` (``map -p rspoa -D``, exact chaining): the local
     POA batches ``_dispatch_local_bucket`` receives, one per (V, L)
     bucket of each stream batch of 8,192 reads, which the one-warp local
@@ -19,9 +24,10 @@ Per batch it reports the shape and the real problems' vertex counts nv
 (mean and max), whether every predecessor precedes its vertex, and how
 many distinct vertices each problem reads from farther back than a row
 ring of 8 and of 16 rows, and so how many problems overflow the
-kernel's pinned rows into its backing store (poa_dp_tb.cu's ring of 8
-rows and 4 pins for abPOA, poa_local_warp.cu's for rspoa).  Everything
-here is counted on the host; nothing is timed.
+kernel's pinned rows into its backing store and how many rows they keep
+there (a ring of 8 rows and 4 pins, poa_dp_tb.cu's and
+poa_dp_tb_cluster.cu's for abPOA, poa_local_warp.cu's for rspoa).
+Everything here is counted on the host; nothing is timed.
 """
 
 from __future__ import annotations
@@ -51,13 +57,15 @@ def chunk_stats(vpred, nv, n_real: int, ring: int = 8, pins: int = 4) -> dict:
     live = (vp >= 0) & (v_ids < nvt.to(torch.int64)[:, None, None])
     far8 = PD.far_vertices_plain(vp, nvt, 8)
     far16 = PD.far_vertices_plain(vp, nvt, 16)
+    backing = PD.backing_rows_plain(vp, nvt, ring, pins)
     return {
         "problems": n_real, "V": V, "P": vp.shape[2],
         "nv_sum": int(nvt.sum()), "nv_max": int(nvt.max()),
         "topological": bool((vp[live] < v_ids.expand_as(vp)[live]).all()),
         "far8_max": int(far8.max()), "far8_sum": int(far8.sum()),
         "far16_max": int(far16.max()),
-        "backing_problems": int((PD.backing_rows_plain(vp, nvt, ring, pins) > 0).sum()),
+        "backing_problems": int((backing > 0).sum()),
+        "backing_rows_sum": int(backing.sum()), "backing_rows_max": int(backing.max()),
     }
 
 
@@ -127,11 +135,13 @@ def main(argv=None) -> dict:
     from .io.fastx import QuerySequence
     from .models.mapper import Mapper
     from .models.stream import DEFAULT_BATCH
-    from .testing import sample_reads, write_synthetic_gfa
+    from .testing import long_reads, sample_reads, write_synthetic_gfa
 
     ap = argparse.ArgumentParser(prog="python -m vgaligner_tpu_torch.poa_chunk_stats")
     ap.add_argument("--engine", choices=["abpoa", "rspoa"], default="abpoa")
-    ap.add_argument("--reads", type=int, default=12288)
+    ap.add_argument("--long", action="store_true",
+                    help="chip_smoke.py's long reads instead of its 100 bp reads")
+    ap.add_argument("--reads", type=int, help="the first N reads (default: all 12,288, or 65)")
     ap.add_argument("--backbone", type=int, default=22600)
     ap.add_argument("--json", dest="json_path")
     args = ap.parse_args(argv)
@@ -142,7 +152,10 @@ def main(argv=None) -> dict:
         gfa = os.path.join(work, "graph.gfa")
         shape = write_synthetic_gfa(gfa, seed=0, backbone_len=args.backbone)
         graph = graph_from_gfa(gfa)
-        reads = sample_reads(graph, args.reads, READ_LEN, seed=77)
+        if args.long:
+            reads = long_reads(graph)[: args.reads]
+        else:
+            reads = sample_reads(graph, args.reads or 12288, READ_LEN, seed=77)
         index = Index.build(graph, K, 100, 100)
         precision = "fast" if args.engine == "abpoa" else "exact"
         mapper = Mapper(index, torch.device("cpu"), bandwidth=50, precision=precision)
@@ -153,24 +166,28 @@ def main(argv=None) -> dict:
 
     problems = sum(c["problems"] for c in chunks)
     out = {
-        "engine": args.engine, "graph": shape, "reads": args.reads, "chunks": chunks,
+        "engine": args.engine, "long": args.long, "graph": shape, "reads": len(reads),
+        "chunks": chunks,
         "problems": problems,
         "nv_mean": sum(c["nv_sum"] for c in chunks) / max(problems, 1),
         "topological": all(c["topological"] for c in chunks),
         "far8_max": max((c["far8_max"] for c in chunks), default=0),
         "far16_max": max((c["far16_max"] for c in chunks), default=0),
         "backing_problems": sum(c["backing_problems"] for c in chunks),
+        "backing_rows": sum(c["backing_rows_sum"] for c in chunks),
     }
     for c in chunks:
         print(f"[chunk] B {c['B']} V {c['V']} W {c['W']} P {c['P']}: {c['problems']} problems, "
               f"nv mean {c['nv_sum'] / c['problems']:.1f} max {c['nv_max']}, far vertices "
               f"(ring 8) max {c['far8_max']} sum {c['far8_sum']}, (ring 16) max "
-              f"{c['far16_max']}, {c['backing_problems']} over the pins, topological "
+              f"{c['far16_max']}, {c['backing_problems']} over the pins (backing rows sum "
+              f"{c['backing_rows_sum']} max {c['backing_rows_max']}), topological "
               f"{c['topological']}")
     print(f"[total] {args.engine}: {len(chunks)} batches, {problems} problems, mean nv "
           f"{out['nv_mean']:.2f}; every predecessor precedes its vertex: {out['topological']}; "
           f"far vertices per problem, ring 8: max {out['far8_max']}, ring 16: max "
-          f"{out['far16_max']}; {out['backing_problems']} problems take the backing store")
+          f"{out['far16_max']}; {out['backing_problems']} problems take the backing store "
+          f"({out['backing_rows']} rows)")
     if args.json_path:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_path)), exist_ok=True)
         with open(args.json_path, "w") as fh:

@@ -135,6 +135,16 @@ def sample_reads(graph, n: int, read_len: int = 100, seed: int = 77,
     return reads
 
 
+def long_reads(graph, n_long: int = 64, seed: int = 3) -> List[str]:
+    """The long reads chip_smoke.py maps: ``n_long`` reads of 1,500-2,100
+    bp, then one of 10 kb, each a path window from ``sample_reads`` with
+    1 % substitutions."""
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in rng.integers(1500, 2101, n_long)] + [10000]
+    return [sample_reads(graph, 1, n, seed=1000 + i, sub_rate=0.01)[0]
+            for i, n in enumerate(lens)]
+
+
 def one_torch_thread():
     """Generator for a pytest fixture: torch on one intra-op thread while
     it is active.  Test tensors are tiny, and parallel test workers that
@@ -224,19 +234,36 @@ def random_local_batch(seed: int, B: int, V: int, P: int, L: int, far_frac: floa
     return vcodes, vpred, nv, q, nq
 
 
-def with_local_edge_cases(arrs):
-    """A local POA batch (at least 4 problems of nv >= 8) with the rows a
-    kernel that stops at each problem's own nv must get right: problem 1
-    reads a predecessor at its vertex and one past it, problem 2 has nv
-    far below V (4 rows) and problem 3 none at all."""
-    vcodes, vpred, nv, q, nq = (np.array(a, copy=True) for a in arrs)
+def with_poa_edge_cases(arrs, empty: bool = True):
+    """A global POA batch (``random_poa_batch``'s six arrays, at least 4
+    problems of nv >= 8) with the rows a kernel that stops at each
+    problem's own nv must get right: problem 1 reads a predecessor at its
+    vertex and one past it, problem 2 has nv far below V (4 rows, vertex 3
+    a sink) and, with ``empty``, problem 3 none at all (whose walk reads
+    rows past its nv, which only the plain version computes)."""
+    vcodes, vpred, is_sink, nv, q, nq = (np.array(a, copy=True) for a in arrs)
     v = int(nv[1]) // 2
     vpred[1, v, 0] = v
     vpred[1, v + 1, vpred.shape[2] - 1] = v + 3 if v + 3 < nv[1] else v + 1
     nv[2] = 4
     vcodes[2, 4:] = 4
     vpred[2, 4:] = -1
-    nv[3] = 0
-    vcodes[3] = 4
-    vpred[3] = -1
+    is_sink[2, 4:] = 0
+    is_sink[2, 3] = 1
+    if empty:
+        nv[3] = 0
+        vcodes[3] = 4
+        vpred[3] = -1
+        is_sink[3] = 0
+    return vcodes, vpred, is_sink, nv, q, nq
+
+
+def with_local_edge_cases(arrs):
+    """A local POA batch (at least 4 problems of nv >= 8) with the rows a
+    kernel that stops at each problem's own nv must get right: problem 1
+    reads a predecessor at its vertex and one past it, problem 2 has nv
+    far below V (4 rows) and problem 3 none at all."""
+    vcodes, vpred, nv, q, nq = arrs
+    vcodes, vpred, _sink, nv, q, nq = with_poa_edge_cases(
+        (vcodes, vpred, np.zeros(vcodes.shape, np.uint8), nv, q, nq))
     return vcodes, vpred, nv, q, nq
