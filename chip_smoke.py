@@ -35,13 +35,19 @@ Phases, one line each; any failure raises and the exit code is not 0:
        registers and spills;
        K4 local POA, one block a problem, on random batches (P 2/4/8, W
        128/256/2048, V 256/2048, problems with no positive cell and
-       nv < V);
+       nv < V), and held and timed at W 16,384, the one width it takes;
        K7 local POA, one warp a problem, for rows up to 256 columns, on
        P 2/4/8 x W 32/64/128/256 x V 64/256/2,048 batches with far
        predecessors past its ring, problems over its pin budget (its
        backing store), a predecessor at and past its vertex, nv far
        below V and nv = 0; its ptxas registers and spills, and its
        occupancy at the rspoa batch shape;
+       K9 local POA, one thread-block cluster a problem, for rows of
+       512-8,192 columns, at every width x P 2/4/8 with far predecessors,
+       pin overflow, a predecessor at and past its vertex and nv = 4 and
+       0, and on chains whose best run takes a far edge (pinned, and on
+       the backing store) where a CTA's columns start (W 4,096 and
+       8,192); its occupancy and ptxas report;
        K5 exact chaining DP on the real anchors at 4,096 x 256 and at
        A = 16,384 and 65,536, then both of its paths (one divide a row;
        one a pair, which a gap table with a negative entry or with scores
@@ -65,18 +71,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
   6. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
      K8, not K2, K3 or K6, and a subgraph over 8,192 vertices on the
-     native host POA), card and ``--device cpu`` byte-identical; K8, K2
-     and K3 are then held against their twins on the largest chunk that
-     run gave K8, and timed there in turns (K2 + K3, K8, K8, K2 + K3);
-     then ``map -p rspoa -D -G --precision exact`` over
-     the same reads (local POA rows over 256 columns: K4 and K5
-     launched, K7 not), the first LONG_CPU_SAMPLE reads byte-identical
-     to ``--device cpu``, and K4 held against its twin and timed on the
-     largest batch that run gave it.
+     native host POA), both GAFs byte-identical to ``--device cpu``; K1
+     held and timed on the launch that run gave it; K8 held against the
+     plain pair on every chunk that run gave it, and K8, K2 and K3 held
+     against their twins on the largest and timed there in turns (K2 +
+     K3, K8, K8, K2 + K3); then ``map -p rspoa -D -G --precision exact``
+     over the same reads (local POA rows of 2,048 and 4,096 columns: K9
+     and K5 launched, K4, K7 and K1 not), both GAFs byte-identical to
+     ``--device cpu``, each local POA launch's shape and bytes under the
+     route's budget, K9 held against its twin on each, K5 held and timed
+     on its launch, and K4 and K9 timed in turns on the largest local POA
+     batch.
 Every CLI phase resets the launch counters just before its run and
 reads them just after; a kernel's ``launches`` are those of the path
 that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K8: long reads,
-abPOA, where K2 and K3 now launch no time; K4: long reads, rspoa).
+abPOA, where K2 and K3 now launch no time; K9, and K4, which launches
+no time there now: long reads, rspoa).
 
 Then one JSON line of per-kernel results and, last, the device line.
 Each kernel's ``bound_ms`` is the larger of the bytes it must move
@@ -106,7 +116,6 @@ N_READS = 12288
 READ_LEN = 100
 K = 11
 CPU_SAMPLE = 256
-LONG_CPU_SAMPLE = 16  # long reads re-run on the CPU plain path by the rspoa leg
 SEED_GRAPH = 0
 N_LONG = 64
 MAIN_CHUNKS = 12  # the abPOA path's POA chunks for N_READS reads (1,024 problems each)
@@ -360,8 +369,8 @@ def phase_chain_kernels(index, reads, dev, results):
 
 
 def _chain_kernel_only(args, table, exact):
-    """One launch of K5 (``exact``: one divide a row) or K1
-    through its C entry on outputs allocated once."""
+    """One launch of K5 (``exact``: one divide a row) or K1 through its
+    C entry on outputs allocated once."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -377,13 +386,14 @@ def _chain_kernel_only(args, table, exact):
     so = kernels.lib()
     ins = [qb.data_ptr(), tb.data_ptr(), te.data_ptr(), valid.data_ptr()]
     outs = [f.data_ptr(), pred.data_ptr(), cmax.data_ptr(), kernels.stream_ptr(dev)]
-    max_gap = len(table) - 1
     if exact:
         tab = C._device_gap_table(table, K, dev)
-        ptrs = [*ins, tab.data_ptr(), B, A, K, 50, max_gap, 1, *outs]
-        return lambda: kernels.check(so.vg_chain_dp_exact(*ptrs), "chain_dp_exact")
-    ptrs = [*ins, B, A, K, 50, max_gap, *outs]
-    return lambda: kernels.check(so.vg_chain_dp(*ptrs), "chain_dp")
+        ptrs = [*ins, tab.data_ptr(), B, A, K, 50, len(table) - 1, 1, *outs]
+        fn = lambda: kernels.check(so.vg_chain_dp_exact(*ptrs), "chain_dp_exact")  # noqa: E731
+    else:
+        ptrs = [*ins, B, A, K, 50, 1000, *outs]
+        fn = lambda: kernels.check(so.vg_chain_dp(*ptrs), "chain_dp")  # noqa: E731
+    return fn
 
 
 def _scattered_anchors(seed, B, A, dev):
@@ -653,7 +663,8 @@ def phase_local_kernel(dev, results):
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
-    from vgaligner_tpu_torch.testing import random_poa_batch
+    from vgaligner_tpu_torch.testing import (random_local_batch, random_poa_batch,
+                                             with_local_edge_cases)
 
     errs = []
     for P in (2, 4, 8):
@@ -672,7 +683,22 @@ def phase_local_kernel(dev, results):
                     raise AssertionError("poa_local batch lacks its edge cases")
                 print(f"[kernels] poa_local (K4) P={P} W={W} V={V} B=32: best/tape/tlen/qend "
                       f"equal (max tlen {int(got[2].max())})")
-    results["poa_local"] = dict(max_abs_err=max(errs))
+    # rows of 16,384 columns (reads of 8,192-16,383 bp), the one width of
+    # the CLI's ladder K4 still takes: held and timed
+    t = [torch.from_numpy(a).to(dev)
+         for a in with_local_edge_cases(random_local_batch(16, 8, 128, 4, 16383, far_frac=0.3))]
+    want = PD.poa_local_plain(*t)
+    _check_equal("poa_local (K4) W=16384", ("best", "tape", "tlen", "qend"),
+                 PD.poa_local(*t), want, errs)
+    ms = _cuda_ms(lambda: PD.poa_local_block(*t), 10)
+    alone = _cuda_ms(_local_kernel_only(t, "block"), 10)
+    plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*t), 1)
+    results["poa_local"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                **_bound_keys(*_local_work(t), F32_OPS_PER_S))
+    print(f"[kernels] poa_local (K4) W 16,384 (B 8, V 128, P 4, through poa_local): equal to the "
+          f"twin; {ms:.4f} ms through its wrapper, {alone:.4f} ms alone (bound "
+          f"{results['poa_local']['bound_ms']:.4f}, {results['poa_local']['bound_by']}; plain "
+          f"{plain_ms:.3f})")
 
 
 def _ptxas(log, kernel):
@@ -738,6 +764,62 @@ def phase_local_warp_kernel(dev, results):
           f"{smem} B shared memory a block: {warps * blocks * sms} problems resident; "
           f"{on_backing} problems of the grid on the backing store")
     results["poa_local_warp"] = dict(max_abs_err=max(errs))
+
+
+def phase_local_cluster_kernel(dev, results):
+    """K9 at every width of CLUSTER_WIDTHS x P 2/4/8 on far and near
+    batches (far predecessors past the ring, pin overflow, a predecessor
+    at and past its vertex, nv = 4 and 0), and on chains whose best run
+    takes a far edge, pinned and on the backing store, exactly where a
+    CTA's columns start (W 4,096 and 8,192); its cluster occupancy and
+    ptxas report."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import (far_jump_local_batch, random_local_batch,
+                                             with_local_edge_cases)
+
+    errs, on_backing = [], 0
+    names = ("best", "tape", "tlen", "qend", "n_backing")
+
+    def check(label, t):
+        got = PD.poa_local_cluster(*t)
+        want = (*PD.poa_local_plain(*t),
+                PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS))
+        _check_equal(label, names, got, want, errs)
+        return got[4].cpu()
+
+    for W in PD.CLUSTER_WIDTHS:
+        for P in (2, 4, 8):
+            V, seed = (256 if W < 8192 else 128), 900 + P + W
+            far = with_local_edge_cases(random_local_batch(seed, 6, V, P, W - 1, far_frac=0.3))
+            near = random_local_batch(seed + 1, 2, V, P, W - 1, far_frac=0.0)
+            t = [torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(far, near)]
+            nb = check(f"poa_local_cluster P={P} W={W} V={V}", t)
+            if not bool((nb[:6] > 0).any()) or bool((nb[6:] != 0).any()):
+                raise AssertionError(f"poa_local_cluster P={P} W={W}: batch lacks its edge cases")
+            on_backing += int((nb > 0).sum())
+            ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, W, V)
+            print(f"[kernels] poa_local_cluster (K9) P={P} W={W} V={V} B=8: best/tape/tlen/qend/"
+                  f"n_backing equal; {int((nb > 0).sum())} problems on the backing store; "
+                  f"{ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared memory "
+                  "a CTA")
+    for W, boundary in ((4096, 2048), (8192, 4096)):
+        ctas = PD.poa_local_cluster_occupancy(2, W, boundary + 200)[0]
+        if boundary % (W // ctas) != 0:
+            raise AssertionError(f"column {boundary} does not start a CTA at W {W}")
+        t = [torch.from_numpy(a).to(dev)
+             for a in far_jump_local_batch(W, boundary, boundary + 200)]
+        nb = check(f"poa_local_cluster far edge at column {boundary} W={W}", t)
+        if nb.tolist() != [1, 0]:
+            raise AssertionError("the far-edge batch lost its backing row or its pin")
+    regs = _ptxas(kernels.build_log, "poa_local_cluster_kernel")
+    print(f"[kernels] K9: {on_backing} problems of the grid on the backing store; a best run "
+          "over a far edge at a CTA's first column (2,048 of W 4,096, 4,096 of W 8,192), pinned "
+          "and on the backing store, equal; ptxas (P: registers, spill store/load bytes): "
+          + "; ".join(f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
+    results["poa_local_cluster"] = dict(max_abs_err=max(errs))
 
 
 def _rows_for(path, names):
@@ -840,7 +922,8 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
         took, launches = _drive("the main path", prefix, fasta, gfa, out,
                                 ["-p", "abpoa", "--precision", "auto"],
                                 ("chain_dp", "poa_dp_tb"),
-                                ("poa_dp", "poa_traceback", "poa_dp_tb_cluster"))
+                                ("poa_dp", "poa_traceback", "poa_dp_tb_cluster",
+                                 "poa_local_cluster"))
     finally:
         PD.poa_dp_tb = real
     if launches["poa_dp_tb"] != MAIN_CHUNKS:
@@ -878,14 +961,15 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
     return launches
 
 
-def _local_kernel_only(args, warp):
-    """One launch of K7 (``warp``) or K4 through its C entry on output
-    buffers allocated once (K4's H and cell plane zeroed once): the
-    kernel's own time, without the wrapper's allocations and K4's
-    zero-fill."""
+def _local_kernel_only(args, kind):
+    """One launch of K7 (``kind`` "warp"), K9 ("cluster") or K4
+    ("block") through its C entry on buffers allocated once
+    (K4's H and cell plane zeroed once): the kernel's own time, without
+    the wrapper's allocations and K4's zero-fill."""
     import torch
 
     from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import poa_device as PD
 
     vcodes, vpred, nv, q, _nq = args
     B, V = vcodes.shape
@@ -898,7 +982,14 @@ def _local_kernel_only(args, warp):
             torch.empty(B, dtype=torch.int32, device=dev)]
     ins = [a.data_ptr() for a in (vcodes, vpred, nv, q)]
     stream = kernels.stream_ptr(dev)
-    if warp:
+    if kind == "cluster":
+        off = torch.from_numpy(PD._back_offsets(vpred, nv, None)).to(dev)
+        scratch = [off, torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev),
+                   torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
+        nb = torch.empty(B, dtype=torch.int32, device=dev)
+        ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
+        return lambda: kernels.check(so.vg_poa_local_cluster(*ptrs), "poa_local_cluster")
+    if kind == "warp":
         scratch = [torch.empty((B, V, W), dtype=torch.int16, device=dev),
                    torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
         nb = torch.empty(B, dtype=torch.int32, device=dev)
@@ -910,26 +1001,36 @@ def _local_kernel_only(args, warp):
     return lambda: kernels.check(so.vg_poa_local(*ptrs), "poa_local")
 
 
-def _local_turns(args, reps=10):
-    """K4 and K7 on the same CUDA tensors, after a warm-up, in turns K4,
-    K7, K7, K4: through their wrappers, then as kernels alone.  Returns
-    {(kernel, how): [ms, ms]}."""
+def _local_turns(args, new="K7", reps=10):
+    """K4 and ``new`` (K7, or K9 with the host's backing-row counts) on
+    the same CUDA tensors, after a warm-up, in turns K4, new, new, K4:
+    through their wrappers, then as kernels alone.  Returns {(kernel,
+    how): [ms, ms]} and the line that reports them."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
+    if new == "K7":
+        wrapper = lambda: PD.poa_local_warp(*args)  # noqa: E731
+    else:
+        back = PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+        wrapper = lambda: PD.poa_local_cluster(*args, back)  # noqa: E731
     fns = {("K4", "wrapper"): lambda: PD.poa_local_block(*args),
-           ("K7", "wrapper"): lambda: PD.poa_local_warp(*args),
-           ("K4", "kernel"): _local_kernel_only(args, False),
-           ("K7", "kernel"): _local_kernel_only(args, True)}
+           (new, "wrapper"): wrapper,
+           ("K4", "kernel"): _local_kernel_only(args, "block"),
+           (new, "kernel"): _local_kernel_only(args, "warp" if new == "K7" else "cluster")}
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     out = {key: [] for key in fns}
+    parts = {"wrapper": [], "kernel": []}
     for how in ("wrapper", "kernel"):
-        for name in ("K4", "K7", "K7", "K4"):
+        for name in ("K4", new, new, "K4"):
             out[name, how].append(_cuda_ms(fns[name, how], reps))
-    return out
+            parts[how].append(f"{name} {out[name, how][-1]:.4f}")
+    line = (f"through the wrappers {', '.join(parts['wrapper'])}; kernels alone "
+            f"{', '.join(parts['kernel'])}")
+    return out, line
 
 
 def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
@@ -938,20 +1039,14 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     captured = {}
-    real = PD.poa_local
-
-    def keep_largest(*args):
-        if not captured or args[0].shape[0] > captured["args"][0].shape[0]:
-            captured["args"] = args
-        return real(*args)
-
+    real = _keep_largest(PD, "poa_local", lambda a: a[0].shape[0], captured)
     out = os.path.join(work, "rspoa", "smoke")
-    PD.poa_local = keep_largest
     try:
         took, launches = _drive("the rspoa path", prefix, fasta, gfa, out,
                                 ["-p", "rspoa", "--precision", "exact"],
                                 ("chain_dp_exact", "poa_local_warp"),
-                                ("chain_dp", "poa_dp", "poa_local", "poa_dp_tb_cluster"))
+                                ("chain_dp", "poa_dp", "poa_local", "poa_dp_tb_cluster",
+                                 "poa_local_cluster"))
     finally:
         PD.poa_local = real
     print(f"[rspoa] map -p rspoa -D --precision exact on {N_READS} reads: {took:.2f} s, "
@@ -967,7 +1062,7 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     print(f"[rspoa] first {n} reads: chains and alignments GAF byte-identical "
           "to the --device cpu --precision exact run")
 
-    args = captured["args"]
+    args = captured["poa_local"][0]
     want = PD.poa_local_plain(*args)
     got = PD.poa_local_warp(*args)
     names = ("best", "tape", "tlen", "qend", "n_backing")
@@ -977,22 +1072,16 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
                  errs)
     _check_equal("poa_local (K4) on the main reads' batch", names[:4],
                  PD.poa_local_block(*args), want, errs4)
-    turns = _local_turns(args)
+    turns, line = _local_turns(args)
     plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
     B, V = args[0].shape
     W, P = args[3].shape[1] + 1, args[1].shape[-1]
     bound = _bound_keys(*_local_work(args), F32_OPS_PER_S)
-    line = ", ".join(f"{name} {ms:.4f}" for name, ms in zip(
-        ("K4", "K7", "K7", "K4"), (turns["K4", "wrapper"][0], turns["K7", "wrapper"][0],
-                                   turns["K7", "wrapper"][1], turns["K4", "wrapper"][1])))
-    line_k = ", ".join(f"{name} {ms:.4f}" for name, ms in zip(
-        ("K4", "K7", "K7", "K4"), (turns["K4", "kernel"][0], turns["K7", "kernel"][0],
-                                   turns["K7", "kernel"][1], turns["K4", "kernel"][1])))
     print(f"[rspoa] local POA on the main reads' largest batch B={B} V={V} W={W} P={P}, mean "
           f"nv {float(args[2].float().mean()):.2f}: K7 and K4 equal to the twin, "
-          f"{int((got[4] > 0).sum())} problems on K7's backing store; in turns through the "
-          f"wrappers {line} ms; kernels alone {line_k} ms; plain {plain_ms:.3f} ms; bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) ({card})")
+          f"{int((got[4] > 0).sum())} problems on K7's backing store; in turns {line} ms; "
+          f"plain {plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+          f"({card})")
     results["poa_local"]["max_abs_err"] = max(results["poa_local"]["max_abs_err"], *errs4)
     results["poa_local_warp"].update(
         max_abs_err=max(results["poa_local_warp"]["max_abs_err"], *errs),
@@ -1001,7 +1090,46 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     return launches
 
 
+def _keep_largest(module, name, work, captured):
+    """Wrap ``module.name`` so that ``captured[name]`` keeps the arguments
+    of its call with the most ``work(args)``; returns the real function."""
+    real = getattr(module, name)
+
+    def keep(*args, **kw):
+        w = work(args)
+        if name not in captured or w > captured[name][1]:
+            captured[name] = (args, w)
+        return real(*args, **kw)
+
+    setattr(module, name, keep)
+    return real
+
+
+def _long_chain_launch(label, args, exact, card):
+    """The chaining kernel (K5 with ``exact``, else K1) on the launch the
+    long-read run gave it: held against its plain twin and timed through
+    its wrapper; the rows each read has to its last valid anchor."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import chain as C
+
+    fn, plain = (C.chain_dp_exact, C.chain_dp_exact_plain) if exact else (C.chain_dp,
+                                                                          C.chain_dp_plain)
+    errs = []
+    _check_equal(f"{label} on the long reads' launch", ("f", "pred", "curr_max"), fn(*args),
+                 plain(*args), errs)
+    ms = _cuda_ms(lambda: fn(*args), 10)
+    bound = _bound_keys(*_chain_work(args[:4], exact), F64_OPS_PER_S if exact else F32_OPS_PER_S)
+    B, A = args[0].shape
+    last = torch.where(args[3], torch.arange(A, device=args[3].device), -1).max(dim=1).values + 1
+    print(f"[long] {label} on the long reads' launch B {B} x A {A}: equal to the twin; "
+          f"{ms:.4f} ms through its wrapper, bound {bound['bound_ms']:.4f} ({bound['bound_by']}); "
+          f"rows to the last valid anchor max {int(last.max())}, mean "
+          f"{float(last.float().mean()):.1f}, {int(args[3].sum())} valid anchors ({card})")
+
+
 def phase_long_reads(work, prefix, gfa, graph, card, results):
+    from vgaligner_tpu_torch.ops import chain as C
     from vgaligner_tpu_torch.ops import poa_device as PD
     from vgaligner_tpu_torch.testing import long_reads, write_fasta
 
@@ -1010,89 +1138,136 @@ def phase_long_reads(work, prefix, gfa, graph, card, results):
     write_fasta(fasta, reads)
     out = os.path.join(work, "long-card", "smoke")
     argv = ["-p", "abpoa", "--precision", "fast"]
-    captured = {}
+    captured, chunks = {}, []
     real = PD.poa_dp_tb_cluster
 
-    def keep_largest(*args):
-        work_ = int(args[3].sum()) * args[4].shape[1]
-        if not captured or work_ > captured["work"]:
-            captured.update(args=args, work=work_)
+    def keep(*args):
+        chunks.append(args)
         return real(*args)
 
-    PD.poa_dp_tb_cluster = keep_largest
+    PD.poa_dp_tb_cluster = keep
+    real_k1 = _keep_largest(C, "chain_dp", lambda a: a[0].numel(), captured)
     try:
         took, launches = _drive("the long-read path", prefix, fasta, gfa, out, argv,
                                 ("chain_dp", "poa_dp_tb_cluster"),
-                                ("poa_dp", "poa_traceback", "poa_dp_tb"))
+                                ("poa_dp", "poa_traceback", "poa_dp_tb", "poa_local_cluster"))
     finally:
         PD.poa_dp_tb_cluster = real
+        C.chain_dp = real_k1
     n_chains, mapped = _check_gaf(out, len(reads),
                                   {f"read{i}": len(r) for i, r in enumerate(reads)})
-    cpu_out = os.path.join(work, "long-cpu", "smoke")
     t0 = time.monotonic()
-    _map(prefix, fasta, gfa, cpu_out, argv + ["--device", "cpu"])
+    n = _cpu_rerun(work, "long", prefix, gfa, reads, out, argv, len(reads))
     cpu_took = time.monotonic() - t0
-    for kind in ("chains", "alignments"):
-        with open(f"{out}-{kind}.gaf", "rb") as a, open(f"{cpu_out}-{kind}.gaf", "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"long reads: {kind} GAF differs between card and CPU")
     print(f"[long] map -p abpoa -D on {N_LONG} reads of 1,500-2,100 bp and one of 10 kb: "
-          f"card {took:.2f} s ({card}), CPU plain {cpu_took:.2f} s; {mapped}/{len(reads)} "
-          f"aligned; chains and alignments GAF byte-identical; launches {launches}")
-    _long_chunk_kernels(captured["args"], card, results)
+          f"card {took:.2f} s ({card}); {mapped}/{len(reads)} aligned; all {n} reads again on "
+          f"the CPU plain path ({cpu_took:.2f} s), chains and alignments GAF byte-identical; "
+          f"launches {launches}")
+    _long_chain_launch("K1", captured["chain_dp"][0], False, card)
+    # each chunk's real problems (nv > 0), the ones its drain decodes: a
+    # padding problem's walk reads rows past its nv, which only the plain
+    # pair computes
+    errs = []
+    for i, args in enumerate(chunks):
+        real = args[3] > 0
+        _fused_check([x[real].contiguous() for x in args[:6]], args[6],
+                     f"poa_dp_tb_cluster on the long reads' chunk {i}", errs, PD.poa_dp_tb_cluster)
+    k8 = results["poa_dp_tb_cluster"]
+    k8["max_abs_err"] = max(k8["max_abs_err"], *errs)
+    print(f"[long] K8 equal to the plain pair on the real problems of each of the {len(chunks)} "
+          "chunks (real problems, B, V, W): " + ", ".join(
+              str((int((a[3] > 0).sum()), a[0].shape[0], a[0].shape[1], a[6].shape[0]))
+              for a in chunks))
+    _long_chunk_kernels(max(chunks, key=lambda a: int(a[3].sum()) * a[4].shape[1]), card,
+                        results)
     return launches, _long_rspoa(work, prefix, gfa, fasta, reads, card, results)
 
 
 def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
-    """The rspoa route over the long reads, whose local POA rows are over
-    256 columns: K4 and K5 launched, K7 not; the first LONG_CPU_SAMPLE
-    reads byte-identical to the CPU plain path; K4 held against its twin,
-    timed and bounded on the largest batch the run gave it."""
+    """The rspoa route over the long reads, whose local POA rows are of
+    512-8,192 columns: K9 and K5 launched, K4, K7 and K1 not; both GAFs
+    byte-identical to the CPU plain path; each launch's shape and bytes
+    under the route's budget, and K9 held against its twin on each; K5
+    held and timed on its launch; K9 and K4 timed in turns on the largest
+    local POA batch."""
+    import numpy as np
+
+    from vgaligner_tpu_torch.ops import chain as C
     from vgaligner_tpu_torch.ops import poa_device as PD
 
-    captured = {}
+    captured, batches = {}, []
     real = PD.poa_local
 
-    def keep_largest(*args):
-        work_ = int(args[2].sum()) * args[3].shape[1]
-        if not captured or work_ > captured["work"]:
-            captured.update(args=args, work=work_)
-        return real(*args)
+    def keep(*args, back_rows=None):
+        B, V = args[0].shape
+        W, P = args[3].shape[1] + 1, args[1].shape[-1]
+        back = np.zeros(B) if back_rows is None else np.asarray(back_rows)
+        batches.append((args, (B, V, W, P, int(args[2].sum()), int(back.sum()),
+                               int(PD.local_problem_bytes(V, W, P, back).sum()))))
+        return real(*args, back_rows=back_rows)
 
+    PD.poa_local = keep
+    real_k5 = _keep_largest(C, "chain_dp_exact", lambda a: a[0].numel(), captured)
     out = os.path.join(work, "long-rspoa", "smoke")
     argv = ["-p", "rspoa", "--precision", "exact"]
-    PD.poa_local = keep_largest
     try:
         took, launches = _drive("the long-read rspoa path", prefix, fasta, gfa, out, argv,
-                                ("chain_dp_exact", "poa_local"),
-                                ("poa_local_warp", "chain_dp", "poa_dp", "poa_traceback",
-                                 "poa_dp_tb", "poa_dp_tb_cluster"))
+                                ("chain_dp_exact", "poa_local_cluster"),
+                                ("poa_local", "poa_local_warp", "chain_dp", "poa_dp",
+                                 "poa_traceback", "poa_dp_tb", "poa_dp_tb_cluster"))
     finally:
         PD.poa_local = real
+        C.chain_dp_exact = real_k5
     _n_chains, mapped = _check_gaf(out, len(reads),
                                    {f"read{i}": len(r) for i, r in enumerate(reads)})
-    n = _cpu_rerun(work, "long-rspoa", prefix, gfa, reads, out, argv, LONG_CPU_SAMPLE)
+    t0 = time.monotonic()
+    n = _cpu_rerun(work, "long-rspoa", prefix, gfa, reads, out, argv, len(reads))
     print(f"[long] map -p rspoa -D --precision exact on the same reads: card {took:.2f} s "
-          f"({card}); {mapped}/{len(reads)} aligned; first {n} reads byte-identical to the "
-          f"--device cpu run; launches {launches}")
+          f"({card}); {mapped}/{len(reads)} aligned; all {n} reads again on the CPU plain path "
+          f"({time.monotonic() - t0:.2f} s), chains and alignments GAF byte-identical; launches "
+          f"{launches}")
+    print(f"[long] rspoa local POA launches under the budget of {PD._LOCAL_BUDGET} bytes "
+          "(B, V, W, P, nv sum, backing rows, bytes): " + "; ".join(str(b) for _a, b in batches))
+    _long_chain_launch("K5", captured["chain_dp_exact"][0], True, card)
+    _long_local_batches([a for a, _b in batches], card, results)
+    return launches
 
-    args = captured["args"]
-    errs = []
-    _check_equal("poa_local (K4) on the long reads' largest batch",
-                 ("best", "tape", "tlen", "qend"), PD.poa_local_block(*args),
-                 PD.poa_local_plain(*args), errs)
-    ms = _cuda_ms(lambda: PD.poa_local_block(*args), 10)
-    alone = _cuda_ms(_local_kernel_only(args, False), 10)
+
+def _long_local_batches(batches, card, results):
+    """K9 held against the twin on every batch of the long-read rspoa
+    leg; on the largest, K4 held too, K4 and K9 timed in turns, and K9's
+    bound from that batch."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    names = ("best", "tape", "tlen", "qend", "n_backing")
+    errs9, errs4, on_backing = [], [], 0
+    for i, args in enumerate(batches):
+        back = PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS)
+        _check_equal(f"poa_local_cluster (K9) on the long reads' batch {i}", names,
+                     PD.poa_local_cluster(*args), (*PD.poa_local_plain(*args), back), errs9)
+        on_backing += int((back > 0).sum())
+    args = max(batches, key=lambda a: int(a[2].sum()) * a[3].shape[1])
+    _check_equal("poa_local (K4) on the long reads' largest batch", names[:4],
+                 PD.poa_local_block(*args), PD.poa_local_plain(*args), errs4)
+    turns, line = _local_turns(args, "K9")
     plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
     bound = _bound_keys(*_local_work(args), F32_OPS_PER_S)
-    results["poa_local"].update(max_abs_err=max(results["poa_local"]["max_abs_err"], *errs),
-                                ms=ms, plain_ms=plain_ms, **bound)
+    results["poa_local"]["max_abs_err"] = max(results["poa_local"]["max_abs_err"], *errs4)
+    results["poa_local_cluster"].update(
+        max_abs_err=max(results["poa_local_cluster"]["max_abs_err"], *errs9),
+        ms=sum(turns["K9", "wrapper"]) / 2, plain_ms=plain_ms, **bound)
     B, V = args[0].shape
-    print(f"[long] rspoa largest local POA batch B={B} V={V} W={args[3].shape[1] + 1} "
-          f"P={args[1].shape[-1]} mean nv {float(args[2].float().mean()):.1f}: K4 equal to the "
-          f"twin; K4 {ms:.4f} ms through its wrapper, {alone:.4f} ms alone (bound "
-          f"{bound['bound_ms']:.4f}, {bound['bound_by']}; plain {plain_ms:.3f}) ({card})")
-    return launches
+    W, P = args[3].shape[1] + 1, args[1].shape[-1]
+    ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, W, V)
+    torch.cuda.synchronize()
+    print(f"[long] K9 equal to the twin on each of the {len(batches)} rspoa batches "
+          f"({on_backing} problems on its backing store); largest B={B} V={V} W={W} P={P} mean nv "
+          f"{float(args[2].float().mean()):.1f} (max {int(args[2].max())}): K4 equal to the "
+          f"twin; K4 and K9 in turns {line} ms; K9 {ctas} CTAs a cluster, {clusters} clusters "
+          f"resident, {smem} B shared memory a CTA; bound {bound['bound_ms']:.4f} "
+          f"({bound['bound_by']}); plain {plain_ms:.3f} ms ({card})")
 
 
 def _long_chunk_kernels(args, card, results):
@@ -1161,10 +1336,12 @@ def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_
                       "columns)", launches),
         "poa_dp_tb_cluster": ("poa_dp_tb_cluster.cu", f"{k2_replaces}, {k3_replaces} (rows of "
                               "512-8,192 columns)", launches_long),
-        "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows over 256 "
+        "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows of 16,384 "
                       "columns)", launches_long_rspoa),
         "poa_local_warp": ("poa_local_warp.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows up "
                            "to 256 columns)", launches_rspoa),
+        "poa_local_cluster": ("poa_local_cluster.cu", "vgaligner_tpu/ops/poa_device.py:1075 "
+                              "(rows of 512-8,192 columns)", launches_long_rspoa),
         "chain_dp_exact": ("chain_dp_exact.cu", "vgaligner_tpu/ops/chain.py:102-177",
                            launches_rspoa),
     }
@@ -1208,16 +1385,25 @@ def main() -> int:
         index = Index.build(graph, K, 100, 100)
         prefix = os.path.join(work, "graph")
         cli.main(["index", "-i", gfa, "-k", str(K), "-o", prefix])
-        phase_chain_kernels(index, reads, dev, results)
-        main_t, main_init = phase_poa_kernels(dev, results)
-        phase_fused_kernel(dev, results, main_t, main_init)
-        phase_cluster_kernel(dev, results)
-        phase_local_kernel(dev, results)
-        phase_local_warp_kernel(dev, results)
-        launches = phase_main_path(work, prefix, gfa, fasta, reads, card, results)
-        launches_rspoa = phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results)
-        launches_long, launches_long_rspoa = phase_long_reads(work, prefix, gfa, graph, card,
-                                                              results)
+
+        def timed(name, fn, *args):
+            out = fn(*args)
+            print(f"[time] {name} done at {time.monotonic() - t_start:.1f} s")
+            return out
+
+        timed("chain kernels", phase_chain_kernels, index, reads, dev, results)
+        main_t, main_init = timed("POA kernels", phase_poa_kernels, dev, results)
+        timed("K6", phase_fused_kernel, dev, results, main_t, main_init)
+        timed("K8", phase_cluster_kernel, dev, results)
+        timed("K4", phase_local_kernel, dev, results)
+        timed("K7", phase_local_warp_kernel, dev, results)
+        timed("K9", phase_local_cluster_kernel, dev, results)
+        launches = timed("abPOA CLI", phase_main_path, work, prefix, gfa, fasta, reads, card,
+                         results)
+        launches_rspoa = timed("rspoa CLI", phase_rspoa_path, work, prefix, gfa, fasta, reads,
+                               card, dev, results)
+        launches_long, launches_long_rspoa = timed("long-read CLI", phase_long_reads, work,
+                                                   prefix, gfa, graph, card, results)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)

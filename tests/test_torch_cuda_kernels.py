@@ -14,9 +14,9 @@ import torch
 
 from vgaligner_tpu_torch.ops import chain as C
 from vgaligner_tpu_torch.ops import poa_device as PD
-from vgaligner_tpu_torch.testing import (random_local_batch, random_poa_batch, sample_reads,
-                                         with_local_edge_cases, with_poa_edge_cases,
-                                         write_synthetic_gfa)
+from vgaligner_tpu_torch.testing import (far_jump_local_batch, random_local_batch,
+                                         random_poa_batch, sample_reads, with_local_edge_cases,
+                                         with_poa_edge_cases, write_synthetic_gfa)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_device")]
 K = 11
@@ -228,6 +228,116 @@ def test_poa_local_warp_kernel_matches_plain(cuda_device, P, W, V):
 def test_poa_local_warp_kernel_rspoa_batch_shape(cuda_device):
     """The rspoa path's batch shape: 8,192 problems x V 256 x W 128, P 2."""
     _local_warp_matches_plain(cuda_device, random_local_batch(9, 8192, 256, 2, 127, far_frac=0.0))
+
+
+def _local_cluster_matches_plain(dev, arrs):
+    """poa_local_cluster's kernel against poa_local_plain on the same CUDA
+    tensors, bit for bit, directly and through ``poa_local`` (which must
+    route there); returns n_backing."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+    want = PD.poa_local_plain(*t)
+    before = PD.kernels.launch_counts()
+    got = PD.poa_local(*t)
+    after = PD.kernels.launch_counts()
+    assert after["poa_local_cluster"] == before["poa_local_cluster"] + 1
+    assert after["poa_local"] == before["poa_local"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    *got, n_backing = PD.poa_local_cluster(*t)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(n_backing, PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS))
+    return n_backing.cpu()
+
+
+@pytest.mark.parametrize("P,W,V", [(2, 512, 256), (4, 1024, 128), (8, 2048, 128), (2, 4096, 96),
+                                   (4, 8192, 64), (2, 2048, 4096), (8, 4096, 128),
+                                   (2, 8192, 128)])
+def test_poa_local_cluster_kernel_matches_plain(cuda_device, P, W, V):
+    """Every width of CLUSTER_WIDTHS (1, 2 and 4 CTAs a cluster): far
+    predecessors beyond the ring, problems over the pin budget (the
+    backing store), a predecessor at and past its vertex, nv far below V
+    and nv = 0, and problems within the ring."""
+    far = with_local_edge_cases(random_local_batch(P * W + V, 6, V, P, W - 1, far_frac=0.3))
+    near = random_local_batch(P * W + V + 1, 2, V, P, W - 1, far_frac=0.0)
+    n_backing = _local_cluster_matches_plain(cuda_device, [np.concatenate(x) for x in
+                                                           zip(far, near)])
+    assert (n_backing[:6] > 0).any() and (n_backing[6:] == 0).all()
+
+
+@pytest.mark.parametrize("W,boundary", [(4096, 2048), (8192, 2048), (8192, 4096), (8192, 6144)])
+def test_poa_local_cluster_halo_over_a_far_edge(cuda_device, W, boundary):
+    """The best match run takes a far edge where a CTA's columns start:
+    the left column comes from the pinned halo (problem 1) and from the
+    backing row another CTA wrote (problem 0)."""
+    arrs = far_jump_local_batch(W, boundary, boundary + 200)
+    assert boundary % (W // PD.poa_local_cluster_occupancy(2, W, boundary + 200)[0]) == 0
+    n_backing = _local_cluster_matches_plain(cuda_device, arrs)
+    assert n_backing.tolist() == [1, 0]
+    best = PD.poa_local_plain(*(torch.from_numpy(a) for a in arrs))[0]
+    assert float(best.min()) >= 2 * (boundary - 1)
+
+
+def test_poa_local_cluster_flags_too_few_backing_rows(cuda_device):
+    """Given one backing row fewer than a problem needs, the kernel writes
+    no row past those it was given and marks the problem with tlen -1;
+    the others are unchanged."""
+    arrs = with_local_edge_cases(random_local_batch(31, 8, 256, 4, 1023, far_frac=0.3))
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    back = PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+    assert (back > 0).any() and (back == 0).any()
+    _best, _tape, tlen, _qend, n_backing = PD.poa_local_cluster(*t, np.maximum(back - 1, 0))
+    want = PD.poa_local_plain(*t)[2].cpu().numpy()
+    tlen = tlen.cpu().numpy()
+    assert (tlen[back > 0] == -1).all() and (tlen[back == 0] == want[back == 0]).all()
+    assert n_backing.cpu().numpy().tolist() == back.tolist()
+
+
+def test_long_reads_take_the_local_cluster_kernel(cuda_device, tmp_path):
+    """Reads of 600-2,000 bp (local POA rows of 1,024 and 2,048 columns)
+    through the rspoa aligner: the cluster kernel, never K4 or K7, and the
+    CPU path's alignments."""
+    from vgaligner_tpu_torch.graph import graph_from_gfa
+    from vgaligner_tpu_torch.index import Index
+    from vgaligner_tpu_torch.io.fastx import QuerySequence
+    from vgaligner_tpu_torch.models.mapper import Mapper
+    from vgaligner_tpu_torch.models.poa_aligner import PoaAligner, PoaEngine
+
+    gfa = str(tmp_path / "g.gfa")
+    write_synthetic_gfa(gfa, seed=5, backbone_len=6000, n_haplotypes=4)
+    graph = graph_from_gfa(gfa)
+    index = Index.build(graph, K, 100, 100)
+    qs = [QuerySequence(name=f"r{i}", seq=sample_reads(graph, 1, n, seed=40 + i, sub_rate=0.01)[0])
+          for i, n in enumerate((600, 1500, 2000))]
+    out = []
+    PD.kernels.reset_launch_counts()
+    for d in (cuda_device, torch.device("cpu")):
+        chains = Mapper(index, d, precision="exact").map_reads(qs)
+        alns = PoaAligner(index, d, engine=PoaEngine.RSPOA).best_alignments_for_queries(chains)
+        out.append("".join(a.to_string() for a in alns))
+    assert out[0] == out[1]
+    launches = PD.kernels.launch_counts()
+    assert launches["poa_local_cluster"] >= 2
+    assert launches["poa_local"] == launches["poa_local_warp"] == 0
+
+
+def test_chain_kernel_long_read_shape(cuda_device):
+    """The long-read launch's shape, B 65 x A 16,384: one read of 9,544
+    valid anchors, the rest under 2,100, valid anchors not a prefix in
+    some."""
+    B, A = 65, 16384
+    rng = np.random.default_rng(12)
+    te = np.sort(rng.integers(0, 3 * A, (B, A)), axis=1).astype(np.int32) + K
+    qb = np.sort(rng.integers(0, 10000, (B, A)), axis=1).astype(np.int32)
+    n_valid = np.concatenate([[9544], rng.integers(1400, 2100, B - 1)])
+    valid = np.arange(A)[None, :] < n_valid[:, None]
+    valid[1::3] &= rng.random((len(valid[1::3]), A)) < 0.7  # not a prefix
+    args = [torch.from_numpy(x).to(cuda_device) for x in (qb, te - K, te, valid)]
+    want = C.chain_dp_plain(*[a.cpu() for a in args], K, 50, 1000)
+    got = C.chain_dp(*args, K, 50, 1000)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[1] >= 0).sum()) > 10000
 
 
 def _exact_args(dev, seed, B, A, unsorted=False):

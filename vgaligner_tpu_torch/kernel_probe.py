@@ -1,0 +1,254 @@
+"""Two design choices timed on the card: the local cluster kernel's
+columns a CTA, and the fast chaining kernel against an earlier version.
+
+    python -m vgaligner_tpu_torch.kernel_probe --old-chain-dp PATH [--reps 10] [--json PATH]
+
+Maps chip_smoke.py's long reads (``testing.long_reads`` on
+``write_synthetic_gfa`` seed 0, k = 11) on the card as the smoke's
+long-read phase does: ``--precision fast`` mapping keeps the launch the
+fast chaining kernel (kernels/csrc/chain_dp.cu) receives, and the rspoa
+route (``--precision exact``) the largest batch the local cluster kernel
+(kernels/csrc/poa_local_cluster.cu) receives.  Then it builds, with
+nvcc, one library a source text into ``_build/probe/``:
+
+  * ``slice2048``: poa_local_cluster.cu as it is (at most 2,048 columns a
+    CTA: one CTA a problem at W 2,048), and ``slice1024`` and
+    ``slice512``, edited copies with 1,024 and 512 (two and four CTAs a
+    cluster at W 2,048); each is held against ``poa_local_plain`` on the
+    batch, then all are timed in turns, each and then each in reverse
+    order, ``--reps`` launches a turn through the C entry on buffers
+    allocated once;
+  * ``old_chain_dp``: the chain_dp.cu at PATH, another version of the
+    kernel with the same C entry (the first port: that file from a
+    checkout of an earlier commit).  It and the port's own kernel are
+    held against ``chain_dp_plain``, then timed in turns (old, new, new,
+    old) on the long-read launch and on the main path's shape, 4,096
+    reads x 256 anchors (``sample_reads`` seed 77, 100 bp).
+
+Every line carries the card's name and power limit; without a CUDA GPU it
+exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+K = 11
+SLICES = (2048, 1024, 512)
+_SLICE_LINE = "constexpr int SLICE = 2048;"
+
+
+def slice_sources(src: str) -> dict:
+    """poa_local_cluster.cu at each of SLICES columns a CTA, by name."""
+    if _SLICE_LINE not in src:
+        raise ValueError("poa_local_cluster.cu no longer has the line the probe edits")
+    return {f"slice{s}": src.replace(_SLICE_LINE, f"constexpr int SLICE = {s};") for s in SLICES}
+
+
+def _captured_launches(dev):
+    """The long reads' fast chaining launch (qb, tb, te, valid) and the
+    local cluster kernel's largest batch (vcodes, vpred, nv, q, nq)."""
+    from .graph import graph_from_gfa
+    from .index import Index
+    from .io.fastx import QuerySequence
+    from .models.mapper import Mapper
+    from .models.poa_aligner import PoaAligner, PoaEngine
+    from .ops import chain as C
+    from .ops import poa_device as PD
+    from .testing import long_reads, sample_reads, write_synthetic_gfa
+
+    work = tempfile.mkdtemp(prefix="vg_kernel_probe_")
+    got: dict = {}
+    real_k1, real_k9 = C.chain_dp, PD.poa_local_cluster
+
+    def keep(name, size, real):
+        def call(*args):
+            if name not in got or size(args) > got[name][1]:
+                got[name] = (args, size(args))
+            return real(*args)
+        return call
+
+    try:
+        gfa = os.path.join(work, "graph.gfa")
+        write_synthetic_gfa(gfa, seed=0)
+        graph = graph_from_gfa(gfa)
+        index = Index.build(graph, K, 100, 100)
+        qs = [QuerySequence(f"read{i}", r) for i, r in enumerate(long_reads(graph))]
+        C.chain_dp = keep("k1", lambda a: a[0].numel(), real_k1)
+        PD.poa_local_cluster = keep("k9", lambda a: int(a[2].sum()) * a[3].shape[1], real_k9)
+        Mapper(index, dev, precision="fast").map_reads(qs)
+        chains = Mapper(index, dev, precision="exact").map_reads(qs)
+        PoaAligner(index, dev, engine=PoaEngine.RSPOA).best_alignments_for_queries(chains)
+        main = _main_anchors(index, sample_reads(graph, 12288, 100, seed=77)[:4096], dev)
+    finally:
+        C.chain_dp, PD.poa_local_cluster = real_k1, real_k9
+        shutil.rmtree(work, ignore_errors=True)
+    return got["k1"][0][:4], main, got["k9"][0][:5]
+
+
+def _main_anchors(index, reads, dev):
+    """The main path's chaining input: ``reads`` encoded, looked up at
+    a_max 256 and sorted."""
+    import torch
+
+    from .index.device_index import device_index
+    from .ops.chain import sort_anchors
+    from .ops.encode import encode_reads_host, window_kmer_codes
+    from .ops.lookup import lookup_and_materialize_anchors
+
+    codes, lens = encode_reads_host(reads, 128)
+    w, wv = window_kmer_codes(torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev), K)
+    anchors = lookup_and_materialize_anchors(device_index(index, dev), w, wv, 256)
+    _o, qb, tb, te, valid = sort_anchors(anchors.qb, anchors.tb, anchors.te, anchors.valid)
+    return (qb.contiguous(), tb.to(torch.int32).contiguous(), te.to(torch.int32).contiguous(),
+            valid.contiguous())
+
+
+def _chain_launcher(entry, args):
+    """A call of a ``vg_chain_dp`` C entry on ``args`` with outputs
+    allocated once -> (call, (f, pred, curr_max))."""
+    import torch
+
+    from . import kernels
+
+    qb, _tb, _te, _valid = args
+    B, A = qb.shape
+    dev = qb.device
+    outs = (torch.empty((B, A), dtype=torch.int32, device=dev),
+            torch.empty((B, A), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev))
+    ptrs = ([x.data_ptr() for x in args] + [B, A, K, 50, 1000] + [o.data_ptr() for o in outs]
+            + [kernels.stream_ptr(dev)])
+    return (lambda: kernels.check(entry(*ptrs), "kernel_probe chain_dp")), outs
+
+
+def _local_launcher(so, args):
+    """A call of a ``vg_poa_local_cluster`` C entry on ``args`` with its
+    buffers allocated once -> (call, (best, tape, tlen, qend, n_backing))."""
+    import torch
+
+    from . import kernels
+    from .ops import poa_device as PD
+
+    vcodes, vpred, nv, q, _nq = args
+    B, V = vcodes.shape
+    P, L = vpred.shape[-1], q.shape[1]
+    dev = vcodes.device
+    off = torch.from_numpy(PD._back_offsets(vpred, nv, None)).to(dev)
+    scratch = (off, torch.empty((max(int(off[-1]), 1), L + 1), dtype=torch.int16, device=dev),
+               torch.empty((B, V, L + 1), dtype=torch.uint8, device=dev))
+    outs = (torch.empty(B, dtype=torch.float32, device=dev),
+            torch.empty((B, L + 1), dtype=torch.int32, device=dev),
+            *(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
+    ptrs = ([x.data_ptr() for x in args[:4]] + [B, V, P, L]
+            + [x.data_ptr() for x in scratch + outs] + [kernels.stream_ptr(dev)])
+    return (lambda: kernels.check(so.vg_poa_local_cluster(*ptrs), "kernel_probe local")), outs
+
+
+def _held(label, got, want):
+    import torch
+
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"kernel_probe: {label} differs from its plain twin")
+
+
+def _turns(calls: dict, reps: int) -> dict:
+    """Each call timed in turns, in order and then in reverse -> {name:
+    [ms, ms]}."""
+    from .poa_cluster_probe import _ms
+
+    out: dict = {}
+    for name in list(calls) + list(calls)[::-1]:
+        out.setdefault(name, []).append(_ms(calls[name], reps))
+    return out
+
+
+def main(argv=None) -> dict:
+    import torch
+
+    from . import kernels
+    from .kernels import BUILD_DIR, CSRC
+    from .ops import chain as C
+    from .ops import poa_device as PD
+    from .poa_cluster_probe import _build
+
+    ap = argparse.ArgumentParser(prog="python -m vgaligner_tpu_torch.kernel_probe")
+    ap.add_argument("--old-chain-dp", required=True,
+                    help="another version of kernels/csrc/chain_dp.cu to time against")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--json", dest="json_path")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_probe: needs a CUDA GPU (torch.cuda.is_available() is False)")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(CSRC, "poa_local_cluster.cu")) as fh:
+        sources = slice_sources(fh.read())
+    with open(args.old_chain_dp) as fh:
+        sources["old_chain_dp"] = fh.read()
+    libs = _build(sources, os.path.join(BUILD_DIR, "probe"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, (so, _regs) in libs.items():
+        if name == "old_chain_dp":
+            so.vg_chain_dp.argtypes = [vp] * 4 + [ci] * 5 + [vp] * 4
+            so.vg_chain_dp.restype = ci
+        else:
+            so.vg_poa_local_cluster.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 9
+            so.vg_poa_local_cluster.restype = ci
+    long_k1, main_k1, batch = _captured_launches(dev)
+    out = {"card": card, "registers": {n: regs for n, (_so, regs) in libs.items()}}
+
+    # the local cluster kernel's columns a CTA
+    B, V = batch[0].shape
+    W, P = batch[3].shape[1] + 1, batch[1].shape[-1]
+    want = (*PD.poa_local_plain(*batch),
+            PD.backing_rows_plain(batch[1], batch[2], PD.LOCAL_RING, PD.LOCAL_PINS))
+    calls = {}
+    for s in SLICES:
+        call, got = _local_launcher(libs[f"slice{s}"][0], batch)
+        call()
+        _held(f"the local cluster kernel at {s} columns a CTA", got, want)
+        calls[s] = call
+    out["local"] = {"B": B, "V": V, "W": W, "P": P, "nv_mean": float(batch[2].float().mean()),
+                    "ms": _turns(calls, args.reps)}
+    print(f"[probe] local cluster kernel on the long reads' largest rspoa batch B {B} V {V} W {W} "
+          f"P {P} (nv mean {out['local']['nv_mean']:.1f}), each width equal to the twin; columns "
+          "a CTA in turns, kernels alone: " + ", ".join(
+              f"{s}: {ms[0]:.4f}/{ms[1]:.4f}" for s, ms in out["local"]["ms"].items())
+          + f" ms ({card})")
+
+    # the fast chaining kernel against the version at PATH
+    for label, k1 in (("long", long_k1), ("main", main_k1)):
+        want = C.chain_dp_plain(*k1, K, 50, 1000)
+        calls = {}
+        for name, entry in (("old", libs["old_chain_dp"][0].vg_chain_dp),
+                            ("new", kernels.lib().vg_chain_dp)):
+            call, got = _chain_launcher(entry, k1)
+            call()
+            _held(f"chain_dp ({name}) on the {label} launch", got, want)
+            calls[name] = call
+        ms = _turns(calls, args.reps)
+        Bk, A = k1[0].shape
+        out[f"chain_{label}"] = {"B": Bk, "A": A, "ms": ms}
+        print(f"[probe] chain_dp on the {label} launch B {Bk} x A {A}: both equal to the twin; "
+              f"in turns old {ms['old'][0]:.4f}, new {ms['new'][0]:.4f}, new {ms['new'][1]:.4f}, "
+              f"old {ms['old'][1]:.4f} ms ({card})")
+    if args.json_path:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json_path)), exist_ok=True)
+        with open(args.json_path, "w") as fh:
+            json.dump(out, fh, indent=1)
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -3,10 +3,11 @@
 The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
 traceback, the fused POA DP + traceback for rows up to 256 columns and,
 one thread-block cluster a problem, for rows of 512-8,192 columns,
-local POA, and local POA one warp a problem for rows up to 256
-columns) are compiled by ``nvcc`` for ``sm_90a``, one
-process per source, all started together, and linked into one shared
-library with a plain C interface, loaded with ctypes.  The build runs
+local POA, local POA one warp a problem for rows up to 256 columns, and
+one thread-block cluster a problem for rows of 512-8,192) are compiled
+by ``nvcc`` for ``sm_90a``, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes.  The build runs
 at first use, into ``vgaligner_tpu_torch/_build/``, keyed by a hash of
 the sources and the flags, so a fresh checkout builds everything it
 needs and a rebuilt source never loads a stale library.  A failed build
@@ -37,7 +38,8 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp.cu", "poa_traceback.cu",
-           "poa_dp_tb.cu", "poa_dp_tb_cluster.cu", "poa_local.cu", "poa_local_warp.cu")
+           "poa_dp_tb.cu", "poa_dp_tb_cluster.cu", "poa_local.cu", "poa_local_warp.cu",
+           "poa_local_cluster.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -46,7 +48,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp": 0, "poa_traceback": 0,
             "poa_dp_tb": 0, "poa_dp_tb_cluster": 0, "poa_local": 0, "poa_local_warp": 0,
-            "chain_gap_cost": 0}
+            "poa_local_cluster": 0, "chain_gap_cost": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -159,6 +161,10 @@ def lib() -> ctypes.CDLL:
         so.vg_poa_local_warp.restype = ci
         so.vg_poa_local_warp_occupancy.argtypes = [ci, ci, ci, vp]
         so.vg_poa_local_warp_occupancy.restype = ci
+        so.vg_poa_local_cluster.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 9
+        so.vg_poa_local_cluster.restype = ci
+        so.vg_poa_local_cluster_occupancy.argtypes = [ci, ci, ci, vp]
+        so.vg_poa_local_cluster_occupancy.restype = ci
         so.vg_poa_dp.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 5
         so.vg_poa_dp.restype = ci
         so.vg_poa_traceback.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 3

@@ -18,10 +18,14 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     runs the same DP under the lane-padded contract of the JAX package's
     Pallas kernel ``poa_dp_pallas``.
   * local gapless (rspoa): ``align_local_batch`` builds problems with
-    ``prepare_problem``, runs ``poa_local`` per (V, L) bucket and decodes
-    each tape through the port's ``ops/poa.py::_finish_result``.  Rows
-    of up to 256 columns take ``poa_local_warp``, one warp a problem
-    (kernels/csrc/poa_local_warp.cu); wider rows take
+    ``prepare_problem``, cuts each (V, L) bucket into launches of real
+    problems under a device-byte budget (``local_chunks``), runs
+    ``poa_local`` on each and decodes each tape through the port's
+    ``ops/poa.py::_finish_result``.  Rows of up to 256 columns take
+    ``poa_local_warp``, one warp a problem
+    (kernels/csrc/poa_local_warp.cu); rows of 512-8,192 columns take
+    ``poa_local_cluster``, one thread-block cluster a problem
+    (kernels/csrc/poa_local_cluster.cu); other widths (16,384) take
     kernels/csrc/poa_local.cu; on the CPU, ``poa_local_plain``.
 
 Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
@@ -790,15 +794,18 @@ def _check_local_inputs(name, vcodes, vpred, nv, q):
     return B, V, P, L
 
 
-def poa_local(vcodes, vpred, nv, q, nq):
-    """Local gapless DP + traceback: for CUDA tensors ``poa_local_warp``
-    at rows of W = L + 1 in LOCAL_WARP_WIDTHS (up to 256 columns),
-    ``poa_local_block`` at other widths; the plain twin for CPU tensors.
-    Same arguments and outputs as ``poa_local_plain``."""
-    if vcodes.device.type == "cpu":
-        return poa_local_plain(vcodes, vpred, nv, q, nq)
-    if q.shape[1] + 1 in LOCAL_WARP_WIDTHS:
+def poa_local(vcodes, vpred, nv, q, nq, back_rows=None):
+    """Local gapless DP + traceback, by row width W = L + 1:
+    ``poa_local_warp`` for W in LOCAL_WARP_WIDTHS (up to 256 columns),
+    ``poa_local_cluster`` for W in CLUSTER_WIDTHS (512-8,192; it takes
+    ``back_rows``), ``poa_local_block`` for other widths; each runs the
+    plain twin for CPU tensors.  Same arguments and outputs as
+    ``poa_local_plain``."""
+    W = q.shape[1] + 1
+    if W in LOCAL_WARP_WIDTHS:
         return poa_local_warp(vcodes, vpred, nv, q, nq)[:4]
+    if W in CLUSTER_WIDTHS:
+        return poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows)[:4]
     return poa_local_block(vcodes, vpred, nv, q, nq)
 
 
@@ -807,7 +814,7 @@ def poa_local_block(vcodes, vpred, nv, q, nq):
     (kernels/csrc/poa_local.cu) for CUDA tensors at any width
     ``kernels.check_row_width`` takes, the plain twin for CPU tensors.
     Same arguments and outputs as ``poa_local_plain``; ``poa_local``
-    sends it the rows wider than 256 columns."""
+    sends it the rows of neither LOCAL_WARP_WIDTHS nor CLUSTER_WIDTHS."""
     if vcodes.device.type == "cpu":
         return poa_local_plain(vcodes, vpred, nv, q, nq)
     B, V, P, L = _check_local_inputs("poa_local", vcodes, vpred, nv, q)
@@ -879,6 +886,78 @@ def poa_local_warp_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
     return out[0], out[1], out[2]
 
 
+def _back_offsets(vpred, nv, back_rows) -> np.ndarray:
+    """[B + 1] int32 first backing row of each problem (and the total)
+    for ``poa_local_cluster``; ``back_rows`` is the host's count per
+    problem, or None to count here (which waits for the device)."""
+    if back_rows is None:
+        back_rows = backing_rows_plain(vpred, nv, LOCAL_RING, LOCAL_PINS).cpu().numpy()
+    off = np.zeros(len(back_rows) + 1, dtype=np.int64)
+    np.cumsum(np.asarray(back_rows, dtype=np.int64), out=off[1:])
+    if off[-1] >= 1 << 31:
+        raise ValueError("poa_local_cluster: over 2^31 backing rows in one launch")
+    return off.astype(np.int32)
+
+
+def poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows=None):
+    """Local gapless DP + traceback, one thread-block cluster a problem:
+    the CUDA kernel (kernels/csrc/poa_local_cluster.cu) for CUDA tensors
+    with W = L + 1 in CLUSTER_WIDTHS, ``poa_local_plain`` for CPU tensors.
+    Same arguments as ``poa_local``, plus ``back_rows`` (the host's
+    ``backing_rows_plain`` at LOCAL_RING, LOCAL_PINS per problem, which
+    sizes the backing store; None counts them here) -> (best, tape, tlen,
+    qend, n_backing): the first four as ``poa_local_plain`` gives them,
+    except tlen -1 for a problem that needs more backing rows than
+    ``back_rows`` gave it, and n_backing [B] int32 the kernel's own count
+    of backing rows.  Raises where the card cannot keep one cluster of
+    this shape resident."""
+    if vcodes.device.type == "cpu":
+        return (*poa_local_plain(vcodes, vpred, nv, q, nq),
+                backing_rows_plain(vpred, nv, LOCAL_RING, LOCAL_PINS))
+    B, V, P, L = _check_local_inputs("poa_local_cluster", vcodes, vpred, nv, q)
+    W = L + 1
+    if W not in CLUSTER_WIDTHS:
+        raise ValueError(f"poa_local_cluster: unsupported row width W={W} {CLUSTER_WIDTHS}")
+    ctas, clusters, smem = poa_local_cluster_occupancy(P, W, V)
+    if clusters <= 0:
+        raise RuntimeError(f"poa_local_cluster: no cluster of {ctas} CTAs with {smem} B of "
+                           f"shared memory each can be resident (P={P}, W={W}, V={V})")
+    dev = vcodes.device
+    off = _back_offsets(vpred, nv, back_rows)
+    back_off = torch.from_numpy(off).to(dev)
+    # never zeroed: only the host-counted rows exist, and the kernel writes
+    # every cell a walk can read
+    backing = torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev)
+    cells = torch.empty((B, V, W), dtype=torch.uint8, device=dev)
+    best = torch.empty(B, dtype=torch.float32, device=dev)
+    tape = torch.empty((B, W), dtype=torch.int32, device=dev)
+    tlen = torch.empty(B, dtype=torch.int32, device=dev)
+    qend = torch.empty(B, dtype=torch.int32, device=dev)
+    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    so = kernels.lib()
+    kernels.LAUNCHES["poa_local_cluster"] += 1
+    kernels.check(
+        so.vg_poa_local_cluster(vcodes.data_ptr(), vpred.data_ptr(), nv.data_ptr(), q.data_ptr(),
+                                B, V, P, L, back_off.data_ptr(), backing.data_ptr(),
+                                cells.data_ptr(), best.data_ptr(), tape.data_ptr(),
+                                tlen.data_ptr(), qend.data_ptr(), n_backing.data_ptr(),
+                                kernels.stream_ptr(dev)),
+        "poa_local_cluster",
+    )
+    return best, tape, tlen, qend, n_backing
+
+
+@functools.lru_cache(maxsize=None)
+def poa_local_cluster_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
+    """(CTAs a cluster, clusters the card keeps resident at once, dynamic
+    shared memory per CTA in bytes) of ``poa_local_cluster``'s kernel at
+    this shape, from the CUDA occupancy calculator.  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.lib().vg_poa_local_cluster_occupancy(P, W, V, ctypes.addressof(out)),
+                  "poa_local_cluster_occupancy")
+    return out[0], out[1], out[2]
+
+
 def align_local_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int, int]], str]],
                       device: torch.device) -> list:
     """Local gapless alignment (rspoa engine) of (nodes, edges, query)
@@ -899,41 +978,83 @@ def align_local_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int
             continue
         key = (_next_pow2(max(len(bg.codes), 256)), _l_pad_for(len(q)))
         buckets.setdefault(key, []).append(i)
-    # launch every bucket, then drain them in order
-    pend = [(idxs, _dispatch_local_bucket([bgs_all[i] for i in idxs],
-                                          [qs_all[i] for i in idxs], v_pad, l_pad, device))
-            for (v_pad, l_pad), idxs in sorted(buckets.items())]
-    for idxs, (out_d, bgs, qs) in pend:
+    # launch every chunk of every bucket, then drain them in order
+    pend = []
+    for (v_pad, l_pad), idxs in sorted(buckets.items()):
+        bgs, qs = [bgs_all[i] for i in idxs], [qs_all[i] for i in idxs]
+        for s, e, out_d in _dispatch_local_bucket(bgs, qs, v_pad, l_pad, device):
+            pend.append((idxs[s:e], bgs[s:e], qs[s:e], out_d))
+    for idxs, bgs, qs, out_d in pend:
         fetched = [x.cpu().numpy() for x in out_d]
         for i, res in zip(idxs, _decode_local_bucket(bgs, qs, fetched)):
             out[i] = res
     return out
 
 
-def _dispatch_local_bucket(bgs, qs, v_pad: int, l_pad: int, device: torch.device):
-    """Pad one bucket to next_pow2(max(n, 4)) problems (copies of the
-    first) and launch ``poa_local`` on it."""
+# per-launch device-memory budget of the local POA route
+_LOCAL_BUDGET = 6 << 30
+
+
+def local_problem_bytes(V: int, W: int, P: int, back_rows: np.ndarray) -> np.ndarray:
+    """Device bytes one local POA problem of a (V, W) batch takes on its
+    route, per problem of ``back_rows`` (its host-counted backing rows):
+    inputs, the u8 cell plane, the backing store (poa_local_warp.cu's
+    whole int16 plane; poa_local_cluster.cu's counted rows; poa_local.cu's
+    zeroed f32 H instead), the tape and the scalars."""
+    fixed = V * (1 + 4 * P) + W + 8 + V * W + 4 * W + 16
+    if W in LOCAL_WARP_WIDTHS:
+        fixed += 2 * V * W
+    elif W not in CLUSTER_WIDTHS:
+        fixed += 4 * (V + 1) * W
+    per = np.full(len(back_rows), fixed, dtype=np.int64)
+    if W in CLUSTER_WIDTHS:
+        per += 2 * W * np.asarray(back_rows, dtype=np.int64)
+    return per
+
+
+def local_chunks(bgs, qs, v_pad: int, l_pad: int, budget: int = None):
+    """One (V, L) bucket as launches of real problems only, each under
+    ``budget`` device bytes (``_LOCAL_BUDGET``; a problem over it runs
+    alone): yields (start, end, (vcodes, vpred, nv, q, nq), back_rows),
+    numpy arrays of problems [start, end), vpred sliced to the bucket's
+    fan-in and back_rows the host's backing-row count per problem."""
+    budget = _LOCAL_BUDGET if budget is None else budget
     probs = [prepare_problem(bg, q, v_pad, l_pad) for bg, q in zip(bgs, qs)]
-    b_pad = _next_pow2(max(len(probs), 4))
-    while len(probs) < b_pad:
-        probs.append(probs[0])
+    arrs = (np.stack([p.vcodes for p in probs]), _slice_preds(np.stack([p.vpred for p in probs])),
+            np.asarray([p.nv for p in probs], dtype=np.int32), np.stack([p.q for p in probs]),
+            np.asarray([p.nq for p in probs], dtype=np.int32))
+    W = l_pad + 1
+    back = np.zeros(len(probs), dtype=np.int64)
+    if W in CLUSTER_WIDTHS:
+        back = backing_rows_plain(torch.from_numpy(arrs[1]), torch.from_numpy(arrs[2]),
+                                  LOCAL_RING, LOCAL_PINS).numpy().astype(np.int64)
+    cost = np.cumsum(local_problem_bytes(v_pad, W, arrs[1].shape[-1], back))
+    s = 0
+    while s < len(probs):
+        base = cost[s - 1] if s else 0
+        e = max(s + 1, int(np.searchsorted(cost, base + budget, side="right")))
+        yield s, e, tuple(a[s:e] for a in arrs), back[s:e]
+        s = e
+
+
+def _dispatch_local_bucket(bgs, qs, v_pad: int, l_pad: int, device: torch.device):
+    """Launch ``poa_local`` on each chunk of one bucket (``local_chunks``)
+    -> [(start, end, outputs on the device)]."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    out_d = poa_local(
-        t(np.stack([p.vcodes for p in probs])),
-        t(_slice_preds(np.stack([p.vpred for p in probs]))),
-        t(np.asarray([p.nv for p in probs], dtype=np.int32)),
-        t(np.stack([p.q for p in probs])),
-        t(np.asarray([p.nq for p in probs], dtype=np.int32)),
-    )
-    return out_d, bgs, qs
+    return [(s, e, poa_local(*(t(a) for a in arrs), back_rows=back))
+            for s, e, arrs, back in local_chunks(bgs, qs, v_pad, l_pad)]
 
 
 def _decode_local_bucket(bgs, qs, fetched):
     """Tapes -> PoaResults: match or mismatch per step, query positions
-    ending at qend."""
+    ending at qend.  Raises on a tlen of -1 (poa_local_cluster's mark of a
+    problem short of backing rows)."""
     from .poa import _finish_result
 
     best, tape, tlens, qends = fetched
+    if (tlens < 0).any():
+        raise RuntimeError("poa_local_cluster: a problem needs more backing rows than the host "
+                           "counted")
     ops, vids = unpack_tape(tape)
     results = []
     for i, (bg, q) in enumerate(zip(bgs, qs)):

@@ -16,9 +16,11 @@ and 65 by default):
     512-8,192; a subgraph over 8,192 vertices takes the host POA and is
     in no chunk);
   * ``--engine rspoa`` (``map -p rspoa -D``, exact chaining): the local
-    POA batches ``_dispatch_local_bucket`` receives, one per (V, L)
-    bucket of each stream batch of 8,192 reads, which the one-warp local
-    POA kernel (poa_local_warp.cu) runs at rows up to 256 columns.
+    POA launches ``_dispatch_local_bucket`` makes, the real problems of
+    each (V, L) bucket of each stream batch of 8,192 reads cut into
+    chunks under the route's byte budget (``local_chunks``), which the
+    one-warp local POA kernel (poa_local_warp.cu) runs at rows up to 256
+    columns and the cluster one (poa_local_cluster.cu) at 512-8,192.
 
 Per batch it reports the shape and the real problems' vertex counts nv
 (mean and max), whether every predecessor precedes its vertex, and how
@@ -76,7 +78,6 @@ class _Recorded(Exception):
 def _record_batches(engine: str, index, chains, batch: int, chunks: list) -> None:
     """Build the engine's POA batches as the CLI does and record each
     one's ``chunk_stats`` in ``chunks``; no DP runs."""
-    import numpy as np
     import torch
 
     from .models.poa_aligner import PoaAligner, PoaEngine
@@ -102,12 +103,10 @@ def _record_batches(engine: str, index, chains, batch: int, chunks: list) -> Non
     real_dispatch, real_decode = PD._dispatch_local_bucket, PD._decode_local_bucket
 
     def record_local(bgs, qs, v_pad, l_pad, device):
-        probs = [PD.prepare_problem(bg, q, v_pad, l_pad) for bg, q in zip(bgs, qs)]
-        vp = PD._slice_preds(np.stack([p.vpred for p in probs]))
-        nv = np.asarray([p.nv for p in probs], dtype=np.int32)
-        chunks.append(dict(chunk_stats(vp, nv, len(probs), PD.LOCAL_RING, PD.LOCAL_PINS),
-                           W=l_pad + 1, B=PD._next_pow2(max(len(probs), 4))))
-        return (), bgs, qs
+        for s, e, arrs, _back in PD.local_chunks(bgs, qs, v_pad, l_pad):
+            chunks.append(dict(chunk_stats(arrs[1], arrs[2], e - s, PD.LOCAL_RING,
+                                           PD.LOCAL_PINS), W=l_pad + 1, B=e - s))
+        return [(0, len(bgs), ())]
 
     def stop(*_args):
         raise _Recorded

@@ -54,8 +54,9 @@ def variant_sources(src: str) -> dict:
 
 
 def _build(sources: dict, out_dir: str) -> dict:
-    """nvcc, one process a variant, all started together -> {name: (CDLL,
-    ptxas register lines)}."""
+    """nvcc, one process a source text, all started together, each into a
+    library of its own -> {name: (CDLL, ptxas register lines)}; the
+    caller binds the C entries."""
     from . import kernels
 
     os.makedirs(out_dir, exist_ok=True)
@@ -74,9 +75,6 @@ def _build(sources: dict, out_dir: str) -> dict:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
         so = ctypes.CDLL(os.path.abspath(os.path.join(out_dir, f"{name}.so")))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
-        so.vg_poa_dp_tb_cluster.restype = ci
         libs[name] = (so, [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                            if "Used" in ln and "registers" in ln])
     return libs
@@ -173,6 +171,10 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     with open(os.path.join(CSRC, "poa_dp_tb_cluster.cu")) as fh:
         libs = _build(variant_sources(fh.read()), os.path.join(BUILD_DIR, "probe"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for so, _regs in libs.values():
+        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        so.vg_poa_dp_tb_cluster.restype = ci
     args_ = _largest_long_chunk(dev)
     t, init = list(args_[:6]), args_[6]
     B, V = t[0].shape

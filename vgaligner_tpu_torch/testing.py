@@ -234,6 +234,36 @@ def random_local_batch(seed: int, B: int, V: int, P: int, L: int, far_frac: floa
     return vcodes, vpred, nv, q, nq
 
 
+def far_jump_local_batch(W: int, boundary: int, V: int, seed: int = 0):
+    """Two local POA problems (vcodes, vpred, nv, q, nq; P 2) on a chain
+    of V vertices whose best match run takes a far edge exactly where a
+    row slice of ``boundary`` columns starts: the query matches vertices
+    0..boundary-2 (its last match at column boundary - 1), then vertex u =
+    boundary + 28 and the chain after it, and u's second predecessor is
+    f = boundary - 2, 30 rows back.  In problem 0 four smaller vertices
+    are read from far back too (v <- v - 30 for v = 40, 42, 44, 46),
+    so f is the fifth far vertex and goes to the backing store; in
+    problem 1 it is the only one, and pinned."""
+    rng = np.random.default_rng(seed)
+    L = W - 1
+    f, u = boundary - 2, boundary + 28
+    if boundary < 20 or u >= V or u + 1 > L:
+        raise ValueError("the far jump needs 20 <= boundary < V - 28")
+    seq = rng.integers(0, 4, V).astype(np.int8)
+    vcodes = np.stack([seq, seq])
+    vpred = np.full((2, V, 2), -1, dtype=np.int32)
+    vpred[:, 1:, 0] = np.arange(V - 1)
+    vpred[:, u, 1] = f
+    for v in (40, 42, 44, 46):
+        vpred[0, v, 1] = v - 30
+    run = np.concatenate([seq[: boundary - 1], seq[u:]])[:L]
+    q = rng.integers(0, 4, (2, L)).astype(np.int8)
+    q[:, : len(run)] = run
+    nv = np.full(2, V, dtype=np.int32)
+    nq = np.full(2, L, dtype=np.int32)
+    return vcodes, vpred, nv, q, nq
+
+
 def with_poa_edge_cases(arrs, empty: bool = True):
     """A global POA batch (``random_poa_batch``'s six arrays, at least 4
     problems of nv >= 8) with the rows a kernel that stops at each
