@@ -16,9 +16,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
        anchors of real reads) and at A = 16,384 and 65,536; the gap cost
        for g = 0..1000;
        K2 POA DP and K3 traceback on random DAG batches (P in 2/4/8, W in
-       128/256, V in 256/2048), at W 2,048/4,096/8,192 (V 256/2048), at
-       W 16,384 (the one width of the CLI's ladder they still take; B 4,
-       timed), and at the main path's chunk shape (1,024 x 256 x 128);
+       128/256, V 256), at W 2,048/4,096/8,192 (V 256), at W 16,384 (the
+       one width of the CLI's ladder they still take; B 4, timed), and at
+       the main path's chunk shape (1,024 x 256 x 128);
        K6, the POA DP and traceback in one kernel for rows up to 256
        columns, on batches with far predecessors and more far-referenced
        vertices than it pins (its backing store), P 2/4/8 x W 32/128/256,
@@ -55,20 +55,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
        valid anchors are scattered, timed at 4,096 x 256 beside K1;
   4. the main path through the CLI entry points: ``index -k 11`` and
      ``map -p abpoa -D -G --precision auto`` over 12,288 100 bp reads of
-     a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes):
+     a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes),
+     with ``-t 0`` (one rank on the one card, no process spawned):
      K1 and K6 launched (K6 12 times), K2 and K3 not; the chunks' mean
      nv and how many problems took K6's backing store; K6 held against
      K2 + K3 and timed on the largest of those chunks; the first 256
      reads again with ``--device cpu --precision fast`` (the plain
      twins), and both GAFs byte-identical for those reads;
-  5. the rspoa path: ``map -p rspoa -D -G --precision exact`` over the
+  5. the sharded path: the same reads through ``stream_map_align`` with
+     ``Mapper(mesh=..., shard_index=True, precision="fast")`` and an
+     abPOA ``PoaAligner(mesh=...)`` in a world-size-1 NCCL group on the
+     card (bucket agreement, the position gather's all-gather and
+     reduce-scatter, the per-batch GAF merge): both GAFs byte-identical
+     to phase 4's, K1 and K6 launched, and the collectives counted (one
+     all-reduce a batch, an all-gather and a reduce-scatter a mapping
+     launch, two all-gathers a merge); no CPU fallback: without NCCL the
+     smoke fails;
+  6. the rspoa path: ``map -p rspoa -D -G --precision exact`` over the
      same reads: K7 and K5 launched, K4, K1 and K2 not, no subgraph GFA
      written, 95 % of reads aligned, and the first 256 reads
      byte-identical to ``--device cpu --precision exact``; on the
      largest batch that run gave the local POA, K7 is held against its
      twin and K4 and K7 are timed in turns (K4, K7, K7, K4), through
      their wrappers and as the kernel alone on buffers allocated once;
-  6. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
+  7. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
      K8, not K2, K3 or K6, and a subgraph over 8,192 vertices on the
      native host POA), both GAFs byte-identical to ``--device cpu``; K1
@@ -479,14 +489,14 @@ def phase_poa_kernels(dev, results):
               "score/best_sink/tbits[:nv]/tape[:tlen]/tlen equal")
         return t, init, tb_k, k_k
 
+    # no CLI run launches K2 + K3 now (K6 and K8 take their rows), so the
+    # grid is shallow: V 256 only, each plain twin's vertex loop short
     for P in (2, 4, 8):
         for W in (128, 256):
-            for V, B in ((256, 32), (2048, 8)):
-                run_batch(100 + P * 10 + W + V, B, V, P, W)
+            run_batch(100 + P * 10 + W + 256, 16, 256, P, W)
     # rows over 1,024 columns (reads over 1,023 bp): several columns a thread
     for W in (2048, 4096, 8192):
-        for V, B in ((256, 64), (2048, 64 if W < 8192 else 32)):
-            run_batch(200 + W + V, B, V, 2, W)
+        run_batch(200 + W + 256, 16, 256, 2, W)
     # rows of 16,384 columns (reads of 8,192-16,383 bp), which only K2 + K3 take
     t16, init16, tb16, k16 = run_batch(220, 4, 128, 4, 16384)
     k2_16 = _cuda_ms(lambda: PD.poa_dp(*t16, init16), 5)
@@ -902,9 +912,15 @@ def _cpu_rerun(work, name, prefix, gfa, reads, out, argv, sample=CPU_SAMPLE):
     return len(names)
 
 
+def _no_spawn(*args, **kw):
+    raise AssertionError("map -t 0 on one card spawned ranks")
+
+
 def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
     import torch
+    import torch.multiprocessing  # noqa: F401  (the spawn the main leg must not call)
 
+    from vgaligner_tpu_torch import cli
     from vgaligner_tpu_torch.ops import poa_device as PD
     from vgaligner_tpu_torch.poa_chunk_stats import chunk_stats
 
@@ -918,14 +934,19 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
 
     out = os.path.join(work, "card", "smoke")
     PD.poa_dp_tb = keep
+    spawn = torch.multiprocessing.spawn
+    torch.multiprocessing.spawn = _no_spawn
     try:
         took, launches = _drive("the main path", prefix, fasta, gfa, out,
-                                ["-p", "abpoa", "--precision", "auto"],
+                                ["-p", "abpoa", "--precision", "auto", "-t", "0"],
                                 ("chain_dp", "poa_dp_tb"),
                                 ("poa_dp", "poa_traceback", "poa_dp_tb_cluster",
                                  "poa_local_cluster"))
     finally:
         PD.poa_dp_tb = real
+        torch.multiprocessing.spawn = spawn
+    if cli.resolve_ranks(0, "cuda") != 1 or torch.distributed.is_initialized():
+        raise AssertionError("-t 0 on the one card did not resolve to one rank")
     if launches["poa_dp_tb"] != MAIN_CHUNKS:
         raise AssertionError(f"poa_dp_tb launched {launches['poa_dp_tb']} times, "
                              f"not once per chunk ({MAIN_CHUNKS})")
@@ -958,7 +979,70 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
     n = _cpu_rerun(work, "main", prefix, gfa, reads, out, ["-p", "abpoa", "--precision", "fast"])
     print(f"[main] first {n} reads: chains and alignments GAF byte-identical "
           "to the --device cpu run")
-    return launches
+    return launches, out
+
+
+def phase_sharded(work, prefix, gfa, fasta, main_out, card):
+    """The main path's reads over the sharded path, in a world-size-1
+    NCCL group on the card: both GAFs byte-identical to the main leg's,
+    K1 and K6 launched, the collectives counted."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from vgaligner_tpu_torch import kernels, parallel
+    from vgaligner_tpu_torch.graph import graph_from_gfa
+    from vgaligner_tpu_torch.index import Index
+    from vgaligner_tpu_torch.io.fastx import read_seqs_from_file
+    from vgaligner_tpu_torch.models.mapper import Mapper
+    from vgaligner_tpu_torch.models.poa_aligner import PoaAligner, PoaEngine
+    from vgaligner_tpu_torch.models.stream import DEFAULT_BATCH, stream_map_align
+
+    index = Index.load_from_prefix(prefix)
+    queries = read_seqs_from_file(fasta)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(work, 'rendezvous')}",
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = parallel.make_mesh(1)
+        mapper = Mapper(index, mesh=mesh, shard_index=True, precision="fast")
+        aligner = PoaAligner(index, mesh=mesh, engine=PoaEngine.ABPOA, export_subgraphs=False,
+                             graph=graph_from_gfa(gfa))
+        got = {"chains": [], "alignments": []}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        parallel.reset_collective_counts()
+        t0 = time.monotonic()
+        stream_map_align(mapper, queries, aligner, batch_size=DEFAULT_BATCH,
+                         on_chains=lambda b: got["chains"].append(b.blob),
+                         on_alignments=lambda b: got["alignments"].append(b.blob), mesh=mesh)
+        torch.cuda.synchronize()
+        took = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        colls = parallel.collective_counts()
+    finally:
+        dist.destroy_process_group()
+    for kind in ("chains", "alignments"):
+        with open(f"{main_out}-{kind}.gaf", "rb") as fh:
+            if b"".join(got[kind]) != fh.read():
+                raise AssertionError(f"the sharded path's {kind} GAF differs from the main leg's")
+    for name in ("chain_dp", "poa_dp_tb"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the sharded path never launched {name}: {launches}")
+    n_batches = -(-len(queries) // DEFAULT_BATCH)
+    maps = launches["chain_dp"]
+    want = {"all_reduce": n_batches, "reduce_scatter_tensor": maps,
+            "all_gather_into_tensor": maps + 4 * n_batches, "broadcast": 0}
+    if colls != want:
+        raise AssertionError(f"collectives {colls}, expected {want}")
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    print(f"[sharded] stream_map_align, Mapper(mesh, shard_index=True, fast) + abPOA over NCCL "
+          f"{nccl} at world size 1 on {len(queries)} "
+          f"reads: {took:.2f} s, {len(queries) / took:.1f} reads/s ({card}); chains and "
+          f"alignments GAF byte-identical to the main leg; collectives {colls}; launches "
+          f"{launches}")
 
 
 def _local_kernel_only(args, kind):
@@ -1398,8 +1482,9 @@ def main() -> int:
         timed("K4", phase_local_kernel, dev, results)
         timed("K7", phase_local_warp_kernel, dev, results)
         timed("K9", phase_local_cluster_kernel, dev, results)
-        launches = timed("abPOA CLI", phase_main_path, work, prefix, gfa, fasta, reads, card,
-                         results)
+        launches, main_out = timed("abPOA CLI", phase_main_path, work, prefix, gfa, fasta,
+                                   reads, card, results)
+        timed("sharded", phase_sharded, work, prefix, gfa, fasta, main_out, card)
         launches_rspoa = timed("rspoa CLI", phase_rspoa_path, work, prefix, gfa, fasta, reads,
                                card, dev, results)
         launches_long, launches_long_rspoa = timed("long-read CLI", phase_long_reads, work,

@@ -18,7 +18,6 @@ import sys
 import pytest
 import torch
 
-from vgaligner_tpu_torch import cli
 from vgaligner_tpu_torch.testing import (one_torch_thread, sample_reads, write_fasta,
                                          write_synthetic_gfa)
 
@@ -213,12 +212,3 @@ def test_default_device_without_a_card_is_an_error(tmp_path, tiny):
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
     assert not (tmp_path / "reads-chains.gaf").exists()
-
-
-@pytest.mark.parametrize("extra,roadmap", [
-    (["-p", "abpoa", "-t", "2"], "A12"),
-    (["-p", "abpoa", "--shard-index"], "A12"),
-])
-def test_unported_options_fail_loudly(extra, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        cli.main(["map", "-i", "unused", "-f", "unused.fa", "--device", "cpu", *extra])

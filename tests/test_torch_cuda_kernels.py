@@ -436,3 +436,49 @@ def test_slice_on_the_card_matches_cpu(cuda_device, tmp_path):
         launches = PD.kernels.launch_counts()
         if engine == PoaEngine.ABPOA:  # 100 bp reads: rows of 128 columns, the fused kernel
             assert launches["poa_dp_tb"] > 0 and launches["poa_dp"] == launches["poa_traceback"] == 0
+
+
+def test_nccl_sharded_map_matches_one_device(cuda_device, tmp_path):
+    """A world-size-1 NCCL group through the whole sharded path (bucket
+    agreement, sharded position gather, per-batch merge) gives the
+    single-device run's chains and alignments GAF on the card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vgaligner_tpu_torch.graph import graph_from_gfa
+    from vgaligner_tpu_torch.index import Index
+    from vgaligner_tpu_torch.io.fastx import QuerySequence
+    from vgaligner_tpu_torch.models.mapper import Mapper
+    from vgaligner_tpu_torch.models.poa_aligner import PoaAligner
+    from vgaligner_tpu_torch.models.stream import stream_map_align
+    from vgaligner_tpu_torch.parallel import collective_counts, make_mesh, reset_collective_counts
+
+    gfa = str(tmp_path / "g.gfa")
+    write_synthetic_gfa(gfa, seed=4, backbone_len=1500, n_haplotypes=5)
+    graph = graph_from_gfa(gfa)
+    index = Index.build(graph, K, 100, 100)
+    qs = [QuerySequence(name=f"r{i}", seq=s) for i, s in
+          enumerate(sample_reads(graph, 96, 100, sub_rate=0.02, revcomp_frac=0.3))]
+    torch.cuda.set_device(cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1)
+        got = {"chains": [], "alignments": []}
+        reset_collective_counts()
+        stream_map_align(Mapper(index, mesh=mesh, shard_index=True, precision="fast",
+                                both_strands=True),
+                         qs, PoaAligner(index, mesh=mesh), batch_size=40,
+                         on_chains=lambda b: got["chains"].append(b.blob),
+                         on_alignments=lambda b: got["alignments"].append(b.blob), mesh=mesh)
+        counts = collective_counts()
+    finally:
+        dist.destroy_process_group()
+    m = Mapper(index, cuda_device, precision="fast", both_strands=True)
+    chains = m.map_reads(qs)
+    alns = PoaAligner(index, cuda_device).best_alignments_for_queries(chains)
+    assert b"".join(got["chains"]) == m.chains_gaf_text(chains)
+    assert b"".join(got["alignments"]) == "".join(a.to_string() for a in alns).encode()
+    assert counts["all_reduce"] == 3 and counts["reduce_scatter_tensor"] >= 3
+    assert counts["all_gather_into_tensor"] == counts["reduce_scatter_tensor"] + 4 * 3

@@ -108,11 +108,14 @@ class ResumableGafWriter:
                 self._chains_f.tell() if self._chains_f is not None else 0,
             ))
 
-    def write_alignments(self, records: Sequence) -> None:
+    def write_alignments(self, records: Sequence, n_reads: Optional[int] = None) -> None:
+        """One batch's alignments: records (one a read) or a text blob of
+        ``n_reads`` reads' rows."""
         assert self._align_f is not None
         self._write_batch(self._align_f, records)
-        n_reads, chains_off = self._pending.pop(0)
-        assert n_reads == len(records)
+        queued, chains_off = self._pending.pop(0)
+        n_reads = len(records) if n_reads is None else n_reads
+        assert n_reads == queued
         self._commit(n_reads, chains_off)
 
     def _commit(self, n_reads: int, chains_off: Optional[int] = None) -> None:

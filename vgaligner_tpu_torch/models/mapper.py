@@ -14,6 +14,16 @@ Reads are bucketed by exact anchor count on the {64, 128, 256, big}
 ladder; no read is truncated, so the bucket never changes the output.
 Reads with more than ``max_anchors_cap`` anchors are chained on the host
 by the native unbounded chainer.
+
+With a ``mesh`` (``parallel/mesh.py``) each rank maps its own slice of
+the batch.  One all-reduce (max) a batch makes the ranks agree on the
+buckets: every rank launches the same buckets in the same order, each
+with the most rows any rank has in it (the rest empty reads), the
+longest read's padding and the single-device run's big a_max, so every
+read gets the single-device shapes and its bytes.  With
+``shard_index`` the position table is split by row over the ranks and
+each launch gathers anchor positions with one all-gather and one
+reduce-scatter; a rank with no read still joins every collective.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from ..index.device_index import device_index
 from ..ops.chain import chain_scores, make_gap_cost_table
 from ..ops.encode import encode_reads_host, window_kmer_codes
 from ..ops.lookup import lookup_and_materialize_anchors
+from ..parallel.mesh import Mesh, place_index, rank_device
 
 log = logging.getLogger(__name__)
 
@@ -128,17 +139,23 @@ def chain_dp_score(chain: Chain, max_gap: int) -> float:
 class Mapper:
     """Batched read mapper over a built index, on an explicit device."""
 
-    def __init__(self, index, device: torch.device, bandwidth: int = 50,
+    def __init__(self, index, device: Optional[torch.device] = None, bandwidth: int = 50,
                  max_gap: int = 1000, chain_min_n_anchors: int = 3,
                  max_anchors_cap: int = 65536, precision: str = "exact",
-                 mapq: bool = False, both_strands: bool = False) -> None:
+                 mapq: bool = False, both_strands: bool = False,
+                 mesh: Optional[Mesh] = None, shard_index: bool = False) -> None:
+        """With a ``mesh`` the mapper runs on the rank's device
+        (``mesh.device``); ``shard_index`` offset-shards the position
+        table over the mesh, and is a no-op without one."""
         if precision not in ("exact", "fast"):
             raise ValueError(f"unknown precision {precision!r}")
         if bandwidth >= 127:
             raise ValueError("bandwidth must be < 127 (the u8 delta plane)")
         require_native()
         self.index = index
-        self.device = torch.device(device)
+        self.device = rank_device(mesh, device)
+        self.mesh = mesh
+        self.shard_index = shard_index and mesh is not None
         self.bandwidth = bandwidth
         self.max_gap = max_gap
         self.chain_min_n_anchors = chain_min_n_anchors
@@ -146,7 +163,11 @@ class Mapper:
         self.precision = precision
         self.mapq = mapq
         self.both_strands = both_strands
-        self.dindex = device_index(index, self.device)
+        if mesh is None:
+            self.dindex = device_index(index, self.device)
+        else:
+            self.dindex = place_index(mesh, device_index(index, torch.device("cpu")),
+                                      shard_positions=self.shard_index)
         self._gap_table = make_gap_cost_table(index.kmer_length, max_gap)
         self.timer = PhaseTimer()
 
@@ -159,7 +180,9 @@ class Mapper:
         is_start = valid & pred != -1 & f == curr_max (chain.rs:469)."""
         k = self.index.kmer_length
         wcodes, wvalid = window_kmer_codes(codes, lens, k)
-        anchors = lookup_and_materialize_anchors(self.dindex, wcodes, wvalid, a_max)
+        anchors = lookup_and_materialize_anchors(
+            self.dindex, wcodes, wvalid, a_max,
+            position_gather=self._sharded_gather if self.shard_index else None)
         scores = chain_scores(anchors.qb, anchors.tb, anchors.te, anchors.valid,
                               self._gap_table, seed_length=k, bandwidth=self.bandwidth,
                               precision=self.precision)
@@ -172,6 +195,25 @@ class Mapper:
             dim=1,
         )
         return packed, counts
+
+    def _sharded_gather(self, table_row: torch.Tensor, valid: torch.Tensor):
+        """The position gather over the offset-sharded table: all-gather
+        every rank's rows, answer those this rank's shard owns (0 for the
+        rest), and reduce-scatter the sums, so each rank gets its own
+        reads' (tb, te) (vgaligner_tpu/models/mapper.py:533-557).  The
+        ranks' batches have one shape (the bucket agreement).  ``valid``
+        is deliberately unused: a padding slot reads row 0 exactly as the
+        replicated gather does (its table_row is already 0 there)."""
+        del valid
+        mesh, fo_start, fo_end = self.mesh, self.dindex.fo_start, self.dindex.fo_end
+        shard = fo_start.shape[0]
+        local = mesh.all_gather(table_row) - mesh.rank * shard
+        owned = (local >= 0) & (local < shard)
+        local = local.clamp(0, shard - 1)
+        both = torch.stack([torch.where(owned, fo_start[local], 0),
+                            torch.where(owned, fo_end[local], 0)], dim=-1)
+        tb, te = mesh.reduce_scatter_sum(both).unbind(-1)
+        return tb.contiguous(), te.contiguous()
 
     # ---- public API ----------------------------------------------------
 
@@ -226,41 +268,46 @@ class Mapper:
         for i, q in enumerate(queries):
             if len(q.seq) < k:
                 out[i] = [Chain(query=q, is_placeholder=True)]
-        if not mappable:
-            return (queries, out, [])
+        totals = np.zeros(0, dtype=np.int64)
+        if mappable:
+            with self.timer.phase("count"):
+                totals = count_anchors_native(
+                    [queries[i].seq for i in mappable], self.index.kmer_codes,
+                    self.index.fo_counts, k, lut=self.index.host_lut(),
+                )
+            over = totals > self.max_anchors_cap
+            if over.any():
+                log.info("%d reads exceed the %d-anchor device cap; mapping them "
+                         "host-side (exact, unbounded)", int(over.sum()), self.max_anchors_cap)
+                for local in np.nonzero(over)[0]:
+                    qi = mappable[int(local)]
+                    out[qi] = self._map_read_overflow(queries[qi])
+                mappable = [qi for local, qi in enumerate(mappable) if not over[local]]
+                totals = totals[~over]
 
-        with self.timer.phase("count"):
-            totals = count_anchors_native(
-                [queries[i].seq for i in mappable], self.index.kmer_codes,
-                self.index.fo_counts, k, lut=self.index.host_lut(),
-            )
-        over = totals > self.max_anchors_cap
-        if over.any():
-            log.info("%d reads exceed the %d-anchor device cap; mapping them "
-                     "host-side (exact, unbounded)", int(over.sum()), self.max_anchors_cap)
-            for local in np.nonzero(over)[0]:
-                qi = mappable[int(local)]
-                out[qi] = self._map_read_overflow(queries[qi])
-            mappable = [qi for local, qi in enumerate(mappable) if not over[local]]
-            totals = totals[~over]
-            if not mappable:
-                return (queries, out, [])
-
-        big = int(totals.max())
-        big_a_max = min(max(_next_pow2(max(big, 1)), 256), self.max_anchors_cap)
-        buckets: dict = {}
+        # bucket classes by exact anchor count: a_max 64, 128, 256, big
+        classes: List[List[int]] = [[], [], [], []]
         for local, qi in enumerate(mappable):
             t = int(totals[local])
-            a_max = 64 if t <= 64 else (128 if t <= 128 else (256 if t <= 256 else big_a_max))
-            buckets.setdefault(a_max, []).append(qi)
-        dispatched = [self._dispatch_bucket(queries, qidx, a_max)
-                      for a_max, qidx in sorted(buckets.items())]
+            classes[0 if t <= 64 else (1 if t <= 128 else (2 if t <= 256 else 3))].append(qi)
+        rows = [len(c) for c in classes]
+        l_max = [max((len(queries[i].seq) for i in c), default=0) for c in classes]
+        big = int(totals.max()) if len(totals) else 0
+        if self.mesh is not None:
+            agreed = self.mesh.all_reduce_max(
+                torch.tensor([*rows, *l_max, big], dtype=torch.int64)).tolist()
+            rows, l_max, big = agreed[:4], agreed[4:8], agreed[8]
+        big_a_max = min(max(_next_pow2(max(big, 1)), 256), self.max_anchors_cap)
+        dispatched = [self._dispatch_bucket(queries, classes[c], a_max, rows[c], l_max[c])
+                      for c, a_max in enumerate((64, 128, 256, big_a_max)) if rows[c]]
         return (queries, out, dispatched)
 
-    def _dispatch_bucket(self, queries, qidx: List[int], a_max: int):
+    def _dispatch_bucket(self, queries, qidx: List[int], a_max: int, rows: int, l_max: int):
+        """One launch of ``rows`` reads padded to the pow2 of ``l_max``:
+        the bucket's reads, then empty reads (lens 0) up to ``rows``."""
         k = self.index.kmer_length
-        seqs = [queries[i].seq for i in qidx]
-        l_pad = _next_pow2(max(max(len(s) for s in seqs), k))
+        seqs = [queries[i].seq for i in qidx] + [""] * (rows - len(qidx))
+        l_pad = _next_pow2(max(l_max, k))
         with self.timer.phase("encode"):
             codes, lens = encode_reads_host(seqs, l_pad)
         with self.timer.phase("device_map"):
@@ -274,9 +321,11 @@ class Mapper:
         queries, out, dispatched = state
         pending = []
         for qidx, a_max, packed, counts in dispatched:
+            if not qidx:
+                continue  # a launch of empty reads only: this rank's share of the agreement
             with self.timer.phase("gather"):
-                plane = packed.cpu().numpy()
-                cnt = counts.cpu().numpy()
+                plane = packed[: len(qidx)].cpu().numpy()
+                cnt = counts[: len(qidx)].cpu().numpy()
             with self.timer.phase("backtrack"):
                 read_off, chain_off, positions = backtrack_delta_native(
                     plane, cnt[:, 0], self.chain_min_n_anchors

@@ -40,6 +40,7 @@ from ..native import (
 from ..utils.dna import encode_seq
 from ..ops.poa_device import P_MAX, _l_pad_for, _next_pow2, align_local_batch, \
     dispatch_bucket, kernel_finish_all, padded_rows
+from ..parallel.mesh import Mesh, rank_device
 from .mapper import Chain
 
 log = logging.getLogger(__name__)
@@ -83,14 +84,20 @@ class PoaEngine(Enum):
 class PoaAligner:
     """Base-level aligner over chain-implied subgraphs (align.rs:34-228)."""
 
-    def __init__(self, index, device: torch.device, engine: PoaEngine = PoaEngine.ABPOA,
+    def __init__(self, index, device: Optional[torch.device] = None,
+                 engine: PoaEngine = PoaEngine.ABPOA,
                  export_subgraphs: bool = False, graph=None,
-                 bubble_closure: bool = False, range_mode: Optional[str] = None):
+                 bubble_closure: bool = False, range_mode: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
+        """With a ``mesh`` the aligner runs on the rank's device
+        (``mesh.device``) and aligns the chains of the rank's own reads:
+        results are per problem, so no collective is needed, and each
+        subgraph GFA is written by the rank that owns its read."""
         import os
 
         require_native()
         self.index = index
-        self.device = torch.device(device)
+        self.device = rank_device(mesh, device)
         self.engine = engine
         self.export_subgraphs = export_subgraphs
         self.graph = graph

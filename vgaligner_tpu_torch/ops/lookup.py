@@ -25,9 +25,15 @@ class AnchorBatch(NamedTuple):
 
 
 def lookup_and_materialize_anchors(index: DeviceIndex, wcodes: torch.Tensor,
-                                   wvalid: torch.Tensor, a_max: int) -> AnchorBatch:
+                                   wvalid: torch.Tensor, a_max: int,
+                                   position_gather=None) -> AnchorBatch:
     """wcodes/wvalid [B, W >= 1] from window_kmer_codes -> anchors padded
-    to a_max."""
+    to a_max.
+
+    position_gather: optional (table_row [B, A] int64, valid [B, A] bool)
+    -> (tb, te) in place of the position-table gather; the offset-sharded
+    index (``parallel/mesh.py`` ``place_index``) resolves rows against
+    every rank's shard of the table there."""
     n_kmers = index.kmer_codes.shape[0]
     if index.dense_lut is not None:
         space = index.dense_lut.shape[0]
@@ -56,7 +62,10 @@ def lookup_and_materialize_anchors(index: DeviceIndex, wcodes: torch.Tensor,
     row_base = offsets.to(torch.int32) - (cum - counts)
     table_row = torch.gather(row_base, 1, w_clip) + slots[None, :]
     table_row = torch.where(valid, table_row, 0).to(torch.int64)
-    tb = index.fo_start[table_row]
-    te = index.fo_end[table_row]
+    if position_gather is not None:
+        tb, te = position_gather(table_row, valid)
+    else:
+        tb = index.fo_start[table_row]
+        te = index.fo_end[table_row]
     return AnchorBatch(qb=w_clip.to(torch.int32), tb=tb, te=te, valid=valid,
                        n_anchors=total)

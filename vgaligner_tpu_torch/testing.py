@@ -12,10 +12,16 @@ tests pass a short backbone.
 read is a window of a random haplotype path at a random offset.  It can
 add substitutions, N bases and reverse complements to exercise more of
 the aligner.
+
+``run_ranks`` runs one of this module's rank jobs (``rank_map_job``,
+``rank_resume_job``) on N CPU ranks over gloo, one spawned process a
+rank, the way ``map -t N --device cpu`` runs them; every child imports
+its job from here.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -297,3 +303,179 @@ def with_local_edge_cases(arrs):
     vcodes, vpred, _sink, nv, q, nq = with_poa_edge_cases(
         (vcodes, vpred, np.zeros(vcodes.shape, np.uint8), nv, q, nq))
     return vcodes, vpred, nv, q, nq
+
+
+def run_ranks(job: str, size: int, workdir: str, *args, timeout: float = 240.0) -> list:
+    """``job(mesh, *args)`` (a function of this module, by name) on
+    ``size`` CPU ranks, each a spawned process in one gloo group over a
+    ``file://`` rendezvous under ``workdir``: the ranks' results in rank
+    order.  A rank's error, or no result within ``timeout`` seconds,
+    stops every rank and raises."""
+    import multiprocessing
+    import queue
+    import tempfile
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    rdv = os.path.join(tempfile.mkdtemp(prefix="ranks-", dir=workdir), "rendezvous")
+    procs = [ctx.Process(target=_rank_entry, args=(job, r, size, rdv, args, results))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(got) < size:  # drain the queue before joining its writers
+            try:
+                rank, ok, value = results.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                raise TimeoutError(f"{job} on {size} ranks: no result from ranks "
+                                   f"{sorted(set(range(size)) - set(got))} in {timeout} s")
+            if not ok:
+                raise RuntimeError(f"{job} failed on rank {rank}:\n{value}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5.0) if len(got) == size else 0.1)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [got[r] for r in range(size)]
+
+
+def _rank_entry(job: str, rank: int, size: int, rendezvous: str, args, results) -> None:
+    """A spawned rank of ``run_ranks``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                                world_size=size, timeout=datetime.timedelta(seconds=120))
+        try:
+            results.put((rank, True, globals()[job](make_mesh(size), *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _named_reads(reads):
+    from .io.fastx import QuerySequence
+
+    return [QuerySequence(name=f"read{i}", seq=s) for i, s in enumerate(reads)]
+
+
+def rank_map_job(mesh, gfa: str, runs: list, gather_rows=None, merge_out=None) -> dict:
+    """A rank's part of the sharded-map tests on the graph ``gfa`` (k 11):
+
+      * ``shard``: this rank's rows of the offset-sharded position table;
+      * ``gathered``: the sharded position gather of ``gather_rows[rank]``;
+      * ``runs``: for each dict of ``reads``, ``mapper`` keywords and an
+        optional ``engine`` (abpoa/rspoa), ``stream_map_align`` over the
+        mesh at ``batch_size`` (default 8,192), giving the merged chains
+        and alignments GAF on rank 0 (b"" elsewhere), the reads this rank
+        sent to the host overflow route, and the collectives counted;
+      * with ``merge_out``, ``merge_gaf_shards`` of this rank's slice of
+        the first run's chains, written there by rank 0.
+    """
+    import torch
+
+    from .graph import graph_from_gfa
+    from .index import Index
+    from .index.device_index import device_index
+    from .models.mapper import Mapper
+    from .models.poa_aligner import PoaAligner, PoaEngine
+    from .models.stream import stream_map_align
+    from .parallel import collective_counts, place_index, reset_collective_counts, shard_batch
+    from .parallel.distributed import merge_gaf_shards
+
+    graph = graph_from_gfa(gfa)
+    index = Index.build(graph, 11, 100, 100)
+    dindex = place_index(mesh, device_index(index, torch.device("cpu")), shard_positions=True)
+    out = dict(shard=(dindex.fo_start.numpy(), dindex.fo_end.numpy()), runs=[])
+    if gather_rows is not None:
+        m = Mapper(index, mesh=mesh, shard_index=True)
+        tb, te = m._sharded_gather(torch.from_numpy(gather_rows[mesh.rank]), None)
+        out["gathered"] = (tb.numpy(), te.numpy())
+    for run in runs:
+        mapper = Mapper(index, mesh=mesh, **run["mapper"])
+        overflow = []
+        real_overflow = mapper._map_read_overflow
+
+        def spy(query, real=real_overflow, seen=overflow):
+            seen.append(query.name)
+            return real(query)
+
+        mapper._map_read_overflow = spy
+        aligner = None
+        if run.get("engine"):
+            aligner = PoaAligner(index, mesh=mesh, engine=PoaEngine(run["engine"]),
+                                 graph=graph)
+        got = {"chains": [], "alignments": []}
+        reset_collective_counts()
+        stream_map_align(mapper, _named_reads(run["reads"]), aligner,
+                         batch_size=run.get("batch_size", 8192),
+                         on_chains=lambda b: got["chains"].append(b.blob),
+                         on_alignments=lambda b: got["alignments"].append(b.blob),
+                         mesh=mesh)
+        out["runs"].append(dict(chains=b"".join(got["chains"]),
+                                alignments=b"".join(got["alignments"]),
+                                overflow=overflow, collectives=collective_counts()))
+    if merge_out is not None:
+        first = runs[0]
+        mapper = Mapper(index, mesh=mesh, **first["mapper"])
+        mine = shard_batch(mesh, _named_reads(first["reads"]))
+        merged = merge_gaf_shards(mapper.chains_to_gaf(mapper.map_reads(mine)), merge_out)
+        out["merged"] = None if merged is None else [r.to_string() for r in merged]
+    return out
+
+
+def rank_resume_job(mesh, cwd: str, argv: list, batch_size: int, stop_at: int):
+    """A rank of ``map`` (the CLI's per-rank run, ``argv`` without
+    ``-t``) from ``cwd`` in batches of ``batch_size`` reads, stopped on
+    every rank at the same point (just before the ``stop_at``-th
+    ``begin_map``, after some batches' rows are committed), then run
+    again with ``--resume`` to the end.  Rank 0 returns the progress
+    record the stopped run left."""
+    import json
+
+    import torch
+
+    from . import cli
+    from .models import stream
+    from .models.mapper import Mapper
+
+    stream.DEFAULT_BATCH = batch_size
+    real, calls = Mapper.begin_map, []
+
+    class Stop(Exception):
+        pass
+
+    def stopping(self, queries):
+        calls.append(1)
+        if len(calls) == stop_at:
+            raise Stop
+        return real(self, queries)
+
+    Mapper.begin_map = stopping
+    os.chdir(cwd)
+    try:
+        cli._map_run(cli._build_parser().parse_args(argv), torch.device("cpu"), mesh)
+    except Stop:
+        pass
+    finally:
+        Mapper.begin_map = real
+    if len(calls) != stop_at:
+        raise AssertionError(f"the run ended after {len(calls)} batches, before the stop")
+    progress = None
+    if mesh.rank == 0:
+        with open("out.progress.json") as fh:
+            progress = json.load(fh)
+    cli._map_run(cli._build_parser().parse_args(argv + ["--resume"]), torch.device("cpu"), mesh)
+    return progress
