@@ -17,7 +17,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
        for g = 0..1000;
        K2 POA DP and K3 traceback on random DAG batches (P in 2/4/8, W in
        128/256, V 256), at W 2,048/4,096/8,192 (V 256), at W 16,384 (the
-       one width of the CLI's ladder they still take; B 4, timed), and at
+       one width of the CLI's ladder they still take; B 4, timed), at V
+       8,192 x W 16,384 (B 2, nv near 8,192, far predecessors: the
+       largest problem that reaches them; timed, with its bound), and at
        the main path's chunk shape (1,024 x 256 x 128);
        K6, the POA DP and traceback in one kernel for rows up to 256
        columns, on batches with far predecessors and more far-referenced
@@ -92,6 +94,23 @@ Phases, one line each; any failure raises and the exit code is not 0:
      route's budget, K9 held against its twin on each, K5 held and timed
      on its launch, and K4 and K9 timed in turns on the largest local POA
      batch.
+  8. the Python subgraph route: the 12,288 reads mapped on the card by
+     ``Mapper(index, precision="fast")`` with no device (the card by
+     default), every selected chain's subgraph built by the Python route
+     (``PoaAligner._range_for_chain``, ``find_nodes_edges``) and held to
+     the native extractor's in corridor mode (and in id mode with bubble
+     closure on a seeded 1,024-read sample), then ``align_global_batch``
+     on the card: K6 once a chunk (12), K2, K3 and K8 not; every
+     PoaResult and GAF row equal to the native CLI route's, and a seeded
+     256-problem sample equal on the CPU; then the same on the long
+     reads (K8 launched, the 10 kb read's subgraph on the native host
+     POA, a seeded sample of 8 on the CPU); the host's seconds a chain
+     and the card's problems/s;
+  9. the suite runner: ``run_suite.run_dataset`` on two synthetic
+     datasets (seeds 0 and 1) at 512 reads of 100 bp, abPOA, fast, on the
+     card (K1 and K6 launched) and on the CPU: every report field but the
+     timings equal (reads_found, avg_jaccard, exact_rate); the card's
+     map_align_rps.
 Every CLI phase resets the launch counters just before its run and
 reads them just after; a kernel's ``launches`` are those of the path
 that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K8: long reads,
@@ -461,8 +480,8 @@ def phase_poa_kernels(dev, results):
 
     dp_err, tb_err = [], []
 
-    def run_batch(seed, B, V, P, W):
-        arrs = random_poa_batch(seed, B, V, P, W - 1)
+    def run_batch(seed, B, V, P, W, **kw):
+        arrs = random_poa_batch(seed, B, V, P, W - 1, **kw)
         t = [torch.from_numpy(a).to(dev) for a in arrs]
         init = torch.from_numpy(PD.make_init_row(W - 1)).to(dev)
         s_k, k_k, tb_k = PD.poa_dp(*t, init)
@@ -502,6 +521,17 @@ def phase_poa_kernels(dev, results):
     k2_16 = _cuda_ms(lambda: PD.poa_dp(*t16, init16), 5)
     k3_16 = _cuda_ms(lambda: PD.poa_traceback(tb16, t16[1], k16, t16[5]), 5)
     print(f"[kernels] W 16,384 (B 4, V 128, P 4): K2 {k2_16:.4f} ms, K3 {k3_16:.4f} ms")
+    # the largest problem they take: V 8,192 x W 16,384, nv near V, far predecessors
+    tw, initw, tbw, kw = run_batch(230, 2, 8192, 4, 16384, far_frac=0.3, min_nv=8000)
+    k2_w = _cuda_ms(lambda: PD.poa_dp(*tw, initw), 3)
+    tape_w, tlen_w = PD.poa_traceback(tbw, tw[1], kw, tw[5])
+    k3_w = _cuda_ms(lambda: PD.poa_traceback(tbw, tw[1], kw, tw[5]), 3)
+    k2_b, k2_by = _bound(*_poa_dp_work(tw), F32_OPS_PER_S)
+    k3_b, k3_by = _bound(*_walk_work(tlen_w, *tbw.shape), F32_OPS_PER_S)
+    print(f"[kernels] V 8,192 x W 16,384 (B 2, P 4, nv {tw[3].tolist()}, far predecessors): "
+          f"K2 {k2_w:.4f} ms, bound {k2_b:.4f} ({k2_by}); K3 {k3_w:.4f} ms, bound {k3_b:.4f} "
+          f"({k3_by}), {int(tlen_w.sum())} walk steps")
+    del tw, tbw, tape_w
     t, init, tbits, sinks = run_batch(7, 1024, 256, 2, 128)
     plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
     plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
@@ -1406,6 +1436,198 @@ def _long_chunk_kernels(args, card, results):
           f"({results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}) ({card})")
 
 
+def _route_problems(index, aligner, chains):
+    """The Python route's ranges and problems of ``chains``, held equal
+    to the native extractor's (``_extract``): handles, trimmed labels,
+    edges and trim starts.  Returns (ranges, problems, the Python
+    route's seconds)."""
+    from vgaligner_tpu_torch.models.poa_aligner import find_nodes_edges
+
+    t0 = time.monotonic()
+    ranges = [aligner._range_for_chain(c) for c in chains]
+    subgraphs = [find_nodes_edges(index, r) for r in ranges]
+    took = time.monotonic() - t0
+    sub = aligner._extract(chains)
+    for i, (rng, (nodes, edges)) in enumerate(zip(ranges, subgraphs)):
+        trims = rng.label_trims or {}
+        lbase = sub.lbase[sub.handle_off[i] : sub.handle_off[i + 1]].tolist()
+        if (sub.handles(i) != rng.handles or sub.nodes(i) != nodes or sub.edges(i) != edges
+                or lbase != [trims.get(h, (0, 0))[0] for h in rng.handles]):
+            raise AssertionError(f"{aligner.range_mode} mode: the Python route's subgraph of "
+                                 f"chain {i} ({chains[i].query.name}) differs from the native "
+                                 "extractor's")
+    return ranges, [(n, e, c.query.seq) for (n, e), c in zip(subgraphs, chains)], took
+
+
+def _route_leg(label, index, aligner, queries, dev, must, must_not, cpu_sample, card):
+    """Map ``queries`` on the card, build every selected chain's problem
+    by the Python route (held to the native extractor), run
+    ``align_global_batch`` on the card with the launch counters reset
+    just before it and read just after, and hold each result and its GAF
+    row to the native CLI route's (``_finish_chains(_dispatch_chains())``)
+    and a seeded sample of ``cpu_sample`` problems to the CPU run.
+    Returns (launches, problems, each read's chains, the base vertices of
+    each problem the host POA took)."""
+    import dataclasses
+
+    import torch
+
+    from vgaligner_tpu_torch import kernels, native
+    from vgaligner_tpu_torch.io.gaf import GAFAlignment
+    from vgaligner_tpu_torch.models.mapper import Mapper
+    from vgaligner_tpu_torch.models.poa_aligner import _rebase_trimmed_offsets
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    mapper = Mapper(index, precision="fast")  # no device: the card by default
+    if mapper.device != dev or aligner.device != dev:
+        raise AssertionError(f"Mapper/PoaAligner without a device run on {mapper.device}/"
+                             f"{aligner.device}, not {dev}")
+    per_read = mapper.map_reads(queries)
+    chains = [c for cs in per_read for c in aligner._chains_for_alignment(cs, 1)
+              if not c.is_placeholder]
+    ranges, problems, route_s = _route_problems(index, aligner, chains)
+    host_calls = []
+    real_host = native.poa_global_host_native
+
+    def host_poa(*args):
+        host_calls.append(sum(len(x) for x in args[0]))
+        return real_host(*args)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    native.poa_global_host_native = host_poa
+    t0 = time.monotonic()
+    try:
+        got = PD.align_global_batch(problems, dev)
+        torch.cuda.synchronize()
+    finally:
+        native.poa_global_host_native = real_host
+    took = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    for name in must:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: align_global_batch never launched {name}: {launches}")
+    for name in must_not:
+        if launches[name] != 0:
+            raise AssertionError(f"{label}: align_global_batch launched {name}: {launches}")
+    pick = np.random.default_rng(5).choice(len(problems), min(cpu_sample, len(problems)),
+                                           replace=False)
+    pick = sorted(int(i) for i in pick)
+    t1 = time.monotonic()
+    cpu = PD.align_global_batch([problems[i] for i in pick], "cpu")
+    cpu_s = time.monotonic() - t1
+    for i, res in zip(pick, cpu):
+        if res != got[i]:
+            raise AssertionError(f"{label}: align_global_batch of problem {i} differs between "
+                                 "the card and the CPU")
+    want = aligner._finish_chains(aligner._dispatch_chains(chains))
+    for i, (res, rng, chain, (w, handles)) in enumerate(zip(got, ranges, chains, want)):
+        res = dataclasses.replace(res)
+        _rebase_trimmed_offsets(res, rng)
+        if res != w:
+            raise AssertionError(f"{label}: align_global_batch of chain {i} differs from the "
+                                 "native route's PoaResult")
+        if (GAFAlignment.from_abpoa_result(res, chain, rng.handles).to_string()
+                != GAFAlignment.from_abpoa_result(w, chain, handles).to_string()):
+            raise AssertionError(f"{label}: the GAF row of chain {i} differs from the native "
+                                 "route's")
+    print(f"[python route] {label}: {len(chains)} chains; the Python route's subgraphs equal "
+          f"to the native extractor's ({route_s:.2f} s on the host, "
+          f"{route_s / max(len(chains), 1) * 1e3:.3f} ms a chain); align_global_batch on the "
+          f"card {took:.2f} s, {len(problems) / took:.1f} problems/s ({card}), every PoaResult "
+          f"and GAF row equal to the native route's; {len(host_calls)} on the host POA "
+          f"(base vertices {host_calls}); {len(pick)} problems again on the CPU ({cpu_s:.2f} s), "
+          f"equal; launches {launches}")
+    return launches, len(problems), per_read, host_calls
+
+
+def phase_python_route(index, graph, reads, dev, card):
+    """The Python subgraph route and ``align_global_batch`` on the smoke's
+    graph: the 12,288 reads (K6 on every chunk, K2 and K3 not; id mode
+    with bubble closure on a seeded 1,024-read sample), then the long
+    reads (K8; the 10 kb read's subgraph on the native host POA)."""
+    from vgaligner_tpu_torch.io.fastx import QuerySequence
+    from vgaligner_tpu_torch.models.poa_aligner import PoaAligner
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import long_reads
+
+    t0 = time.monotonic()
+    aligner = PoaAligner(index)  # abPOA, corridor, and the card by default
+    queries = [QuerySequence.from_name_and_string(f"read{i}", r) for i, r in enumerate(reads)]
+    launches, n_problems, per_read, _host = _route_leg(
+        "100 bp reads", index, aligner, queries, dev, ("poa_dp_tb",),
+        ("poa_dp", "poa_traceback", "poa_dp_tb_cluster"), CPU_SAMPLE, card)
+    chunks = -(-n_problems // PD._b_chunk_for(256, PD._l_pad_for(READ_LEN)))
+    if launches["poa_dp_tb"] != chunks:
+        raise AssertionError(f"align_global_batch launched poa_dp_tb {launches['poa_dp_tb']} "
+                             f"times for {n_problems} problems, not once a chunk ({chunks})")
+    print(f"[python route] poa_dp_tb launched {chunks} times for {n_problems} problems (the "
+          f"main leg: {MAIN_CHUNKS})")
+    by_id = PoaAligner(index, range_mode="id", bubble_closure=True)
+    pick = np.random.default_rng(11).choice(len(queries), min(1024, len(queries)), replace=False)
+    id_chains = [c for i in sorted(int(x) for x in pick)
+                 for c in by_id._chains_for_alignment(per_read[i], 1) if not c.is_placeholder]
+    _r, _p, id_s = _route_problems(index, by_id, id_chains)
+    print(f"[python route] id mode with bubble closure, {len(id_chains)} chains of a seeded "
+          f"1,024-read sample: the Python route's subgraphs equal to the native extractor's "
+          f"({id_s:.2f} s on the host)")
+    long_q = [QuerySequence.from_name_and_string(f"read{i}", r)
+              for i, r in enumerate(long_reads(graph, N_LONG))]
+    launches_long, _n, _per_read, host = _route_leg(
+        "long reads", index, aligner, long_q, dev, ("poa_dp_tb_cluster",),
+        ("poa_dp", "poa_traceback"), 8, card)
+    if not any(v > 8192 for v in host):
+        raise AssertionError("the 10 kb read's subgraph did not take the native host POA")
+    print(f"[python route] done in {time.monotonic() - t0:.2f} s ({card})")
+    return launches, launches_long
+
+
+def phase_suite(work, card):
+    """``run_suite.run_dataset`` on two synthetic datasets (seeds 0 and 1)
+    on the card, then on the CPU: every report field but the timings
+    equal, K1 and K6 launched on the card."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.experiments.run_suite import run_dataset
+    from vgaligner_tpu_torch.testing import write_synthetic_gfa
+
+    timings = ("index_build_s", "map_s", "align_s", "map_align_rps")
+    all_launches = []
+    for seed in (0, 1):
+        name = f"synthetic-{seed}"
+        os.makedirs(os.path.join(work, "datasets", name))
+        gfa = os.path.join(work, "datasets", name, "graph.gfa")
+        write_synthetic_gfa(gfa, seed=seed)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        on_card = run_dataset(gfa, name, 512, READ_LEN, K, "fast", "abpoa", device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        for want in ("chain_dp", "poa_dp_tb"):
+            if launches[want] <= 0:
+                raise AssertionError(f"[suite] {name} never launched {want}: {launches}")
+        for unwanted in ("poa_dp", "poa_traceback", "chain_dp_exact"):
+            if launches[unwanted] != 0:
+                raise AssertionError(f"[suite] {name} launched {unwanted}: {launches}")
+        on_cpu = run_dataset(gfa, name, 512, READ_LEN, K, "fast", "abpoa", device="cpu")
+        a = {k: v for k, v in vars(on_card).items() if k not in timings}
+        b = {k: v for k, v in vars(on_cpu).items() if k not in timings}
+        if a != b:
+            raise AssertionError(f"[suite] {name}: the card's report {a} differs from the "
+                                 f"CPU's {b}")
+        all_launches.append(launches)
+        print(f"[suite] {name} ({on_card.n_nodes} nodes, {on_card.n_kmers} k-mers), 512 reads "
+              f"of {READ_LEN} bp, abPOA, fast: reads_found {on_card.reads_found}, avg_jaccard "
+              f"{on_card.avg_jaccard}, exact_rate {on_card.exact_rate}, equal to the CPU run; "
+              f"card map {on_card.map_s} s + align {on_card.align_s} s, map_align_rps "
+              f"{on_card.map_align_rps} ({card}; the CPU {on_cpu.map_align_rps}); the card "
+              f"run {card_s:.2f} s with its warm-up; launches {launches}")
+    return all_launches
+
+
 def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa):
     """The per-kernel result line: each kernel with the launches of the
     path that runs it and its measured and bound times."""
@@ -1489,6 +1711,8 @@ def main() -> int:
                                card, dev, results)
         launches_long, launches_long_rspoa = timed("long-read CLI", phase_long_reads, work,
                                                    prefix, gfa, graph, card, results)
+        timed("python route", phase_python_route, index, graph, reads, dev, card)
+        timed("suite", phase_suite, work, card)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)

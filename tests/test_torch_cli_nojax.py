@@ -5,12 +5,14 @@ port's path would crash it there: the CLI is run in a subprocess where
 ``import jax`` fails; again with ``vgaligner_tpu``, ``jax`` and
 ``jaxlib`` blocked by a meta-path finder and an audit hook recording
 every file opened, compiled or imported and every process started under
-``vgaligner_tpu/``; and every module of the port is scanned for imports
-of ``jax`` or of the JAX package and for paths it builds into
+``vgaligner_tpu/`` (the CLI, and the suite runner
+``experiments/run_suite``); and every module of the port is scanned for
+imports of ``jax`` or of the JAX package and for paths it builds into
 ``vgaligner_tpu``.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -72,8 +74,11 @@ sys.meta_path.insert(0, Block())
 sys.addaudithook(hook)
 sys.path.insert(0, {repo!r})
 for argv in {argvs!r}:
-    sys.argv = ["vgaligner_tpu_torch"] + argv
-    runpy.run_module("vgaligner_tpu_torch", run_name="__main__", alter_sys=True)
+    sys.argv = [{module!r}] + argv
+    try:
+        runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+    except SystemExit as exc:  # a module that ends in sys.exit(main())
+        assert exc.code in (0, None), exc.code
 assert not events, events[:10]
 loaded = [n for n, m in list(sys.modules.items()) if under(getattr(m, "__file__", None))]
 assert not loaded, loaded
@@ -92,8 +97,8 @@ def tiny(tmp_path):
     return gfa, fa
 
 
-def _run(tmp_path, argvs, script=_RUN):
-    code = script.format(repo=REPO, argvs=argvs)
+def _run(tmp_path, argvs, script=_RUN, module="vgaligner_tpu_torch"):
+    code = script.format(repo=REPO, argvs=argvs, module=module)
     env = dict(os.environ, OMP_NUM_THREADS="1")  # tiny tensors; see one_torch_thread
     return subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=300, env=env)
@@ -131,6 +136,22 @@ def test_cli_touches_no_file_of_the_jax_package(tmp_path, tiny):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "AUDIT_OK" in proc.stdout
     assert len((tmp_path / "out-alignments.gaf").read_text().splitlines()) == 12
+
+
+def test_run_suite_touches_no_file_of_the_jax_package(tmp_path, tiny):
+    """``python -m vgaligner_tpu_torch.experiments.run_suite`` on a dataset
+    directory, under the same block and audit hook as the CLI."""
+    gfa, _fa = tiny
+    os.makedirs(tmp_path / "datasets" / "tiny")
+    os.replace(gfa, tmp_path / "datasets" / "tiny" / "graph.gfa")
+    report = tmp_path / "report.json"
+    proc = _run(tmp_path, [
+        ["--datasets", str(tmp_path / "datasets"), "--device", "cpu", "--n-reads", "16",
+         "--out", str(report)],
+    ], script=_AUDIT_RUN, module="vgaligner_tpu_torch.experiments.run_suite")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "AUDIT_OK" in proc.stdout
+    assert json.loads(report.read_text())[0]["n_reads"] == 16
 
 
 def test_cli_rspoa_exact_with_jax_blocked(tmp_path, tiny):

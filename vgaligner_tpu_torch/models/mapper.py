@@ -13,7 +13,9 @@ map.rs:27-216, and the backtrack of chain_anchors, chain.rs:452-655).
 Reads are bucketed by exact anchor count on the {64, 128, 256, big}
 ladder; no read is truncated, so the bucket never changes the output.
 Reads with more than ``max_anchors_cap`` anchors are chained on the host
-by the native unbounded chainer.
+by the native unbounded chainer.  ``anchors_for_query_host`` is the
+host anchor path (chain.rs:134-173, either orient), which the tests and
+the per-chain API (``Chain.from_anchor_list``) use.
 
 With a ``mesh`` (``parallel/mesh.py``) each rank maps its own slice of
 the batch.  One all-reduce (max) a batch makes the ranks agree on the
@@ -30,11 +32,12 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..index.kmer_gen import FORWARD
 from ..io.fastx import QuerySequence
 from ..io.gaf import GAFAlignment
 from ..native import (
@@ -87,11 +90,24 @@ def assign_mapq(chains, secondary_chain_threshold: float = SECONDARY_CHAIN_THRES
             c.mapping_quality = 0.0
 
 
+class ChainAnchor(NamedTuple):
+    """An anchor inside a chain (chain.rs:29-75); the production path is
+    forward-only, so both orients default to Forward."""
+
+    id: int
+    qb: int
+    qe: int
+    tb: int
+    te: int
+    so: int = FORWARD
+    eo: int = FORWARD
+
+
 @dataclass
 class Chain:
-    """chain.rs:177-272; anchor data as ascending arrays.  The
-    reference's Chain::score is never assigned (always 0), so it is
-    not kept."""
+    """chain.rs:177-272; anchor data as ascending arrays, with
+    ``ChainAnchor`` views on demand (``anchors``).  The reference's
+    Chain::score is never assigned (always 0), so it is not kept."""
 
     query: QuerySequence
     aqb: Optional[np.ndarray] = None  # int64 [n] query begins
@@ -105,9 +121,33 @@ class Chain:
     is_placeholder: bool = False
     strand: str = "+"  # "-": the chain maps the read's reverse complement
 
+    @classmethod
+    def from_anchor_list(cls, query, anchors: List[ChainAnchor]) -> "Chain":
+        return cls(
+            query=query,
+            aqb=np.asarray([a.qb for a in anchors], dtype=np.int64),
+            atb=np.asarray([a.tb for a in anchors], dtype=np.int64),
+            ate=np.asarray([a.te for a in anchors], dtype=np.int64),
+            aso=np.asarray([a.so for a in anchors], dtype=np.int8),
+            aeo=np.asarray([a.eo for a in anchors], dtype=np.int8),
+            k=(anchors[0].qe - anchors[0].qb) if anchors else 0,
+        )
+
     @property
     def n_anchors(self) -> int:
         return 0 if self.aqb is None else len(self.aqb)
+
+    @property
+    def anchors(self) -> List[ChainAnchor]:
+        if self.aqb is None:
+            return []
+        return [
+            ChainAnchor(id=i, qb=int(self.aqb[i]), qe=int(self.aqb[i]) + self.k,
+                        tb=int(self.atb[i]), te=int(self.ate[i]),
+                        so=FORWARD if self.aso is None else int(self.aso[i]),
+                        eo=FORWARD if self.aeo is None else int(self.aeo[i]))
+            for i in range(len(self.aqb))
+        ]
 
 
 def _next_pow2(x: int) -> int:
@@ -134,6 +174,22 @@ def chain_dp_score(chain: Chain, max_gap: int) -> float:
                     tb=int(chain.atb[i]), te=int(chain.ate[i]))
         f = score_anchor(a, b, k, max_gap)
     return f
+
+
+def anchors_for_query_host(index, query: QuerySequence,
+                           only_forward: bool = True) -> List[ChainAnchor]:
+    """Anchors of a query on the host, in query k-mer order
+    (chain.rs:134-173): every position of each k-mer, forward-only unless
+    ``only_forward`` is False.  The device lookup (ops/lookup.py) is its
+    vectorised forward-only equivalent."""
+    k = index.kmer_length
+    anchors: List[ChainAnchor] = []
+    for i, kmer in enumerate(query.split_into_kmers(k)):
+        for so, sp, eo, ep in index.find_positions_for_query_kmer(kmer):
+            if not only_forward or (so == FORWARD and eo == FORWARD):
+                anchors.append(ChainAnchor(id=len(anchors), qb=i, qe=i + k, tb=sp, te=ep,
+                                           so=so, eo=eo))
+    return anchors
 
 
 class Mapper:

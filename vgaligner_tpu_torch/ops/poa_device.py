@@ -16,7 +16,10 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     longest walk and the native runtime decodes it into cigar/cs/node
     paths.  ``poa_global_kernel``
     runs the same DP under the lane-padded contract of the JAX package's
-    Pallas kernel ``poa_dp_pallas``.
+    Pallas kernel ``poa_dp_pallas``.  ``align_global_batch`` takes
+    (nodes, edges, query) problems and runs them through the same
+    builder, chunks and kernels (the batch entry point that needs no
+    native extractor).
   * local gapless (rspoa): ``align_local_batch`` builds problems with
     ``prepare_problem``, cuts each (V, L) bucket into launches of real
     problems under a device-byte budget (``local_chunks``), runs
@@ -666,6 +669,101 @@ def dispatch_bucket(built, qs, v_pad: int, l_pad: int, device: torch.device) -> 
     """Dispatch every chunk of one (v_pad, l_pad) bucket."""
     return [kernel_dispatch(chunk, cqs, v_pad, l_pad, device)
             for chunk, cqs in _iter_chunks(built, qs, v_pad, l_pad)]
+
+
+def align_global_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int, int]], str]],
+                       device=None) -> list:
+    """Global POA (abPOA engine) of (nodes, edges, query) problems on
+    ``device`` (the card when None; without one ``resolve_device`` raises
+    RuntimeError): a list of PoaResults equal to ``align_global_host`` on
+    each problem.  Problems are bucketed by (pow2 V >= 256, query ladder),
+    built by the native builder and run chunk by chunk through
+    ``dispatch_bucket``; subgraphs above 8,192 base vertices go to the
+    native host POA.  A bucket the builder refuses (a vertex fan-in above
+    P_MAX) takes ``_align_bucket``, which raises ValueError there, as the
+    JAX package's does.  Equal to the JAX package's ``align_global_batch``."""
+    from ..device import resolve_device
+    from ..native import poa_global_host_native
+    from ..utils.dna import encode_seq
+    from .poa import build_base_graph
+
+    device = resolve_device("cuda" if device is None else device)
+    qs_all = [encode_seq(q) for _, _, q in problems]
+    vs = [sum(len(s) for s in nodes) for nodes, _, _ in problems]
+    buckets: dict = {}
+    out = [None] * len(problems)
+    for i, (v, q) in enumerate(zip(vs, qs_all)):
+        if v > 8192:
+            out[i] = poa_global_host_native(*problems[i])
+            continue
+        buckets.setdefault((_next_pow2(max(v, 256)), _l_pad_for(len(q))), []).append(i)
+    for (v_pad, l_pad), idxs in sorted(buckets.items()):
+        qs = [qs_all[i] for i in idxs]
+        res = _align_bucket_native([problems[i][:2] for i in idxs], qs, v_pad, l_pad, device)
+        if res is None:
+            res = _align_bucket([build_base_graph(*problems[i][:2]) for i in idxs], qs,
+                                v_pad, l_pad, device)
+        for i, r in zip(idxs, res):
+            out[i] = r
+    return out
+
+
+def _align_bucket_native(node_edge_probs, qs, v_pad: int, l_pad: int, device: torch.device):
+    """One bucket through the native builder and tape decoder around the
+    kernels; None where a problem exceeds the pads (fan-in above P_MAX)."""
+    from ..native import build_poa_batch_native
+
+    built = build_poa_batch_native(node_edge_probs, v_pad, P_MAX,
+                                   rows=padded_rows(len(node_edge_probs), v_pad, l_pad))
+    if built is None:
+        return None
+    return kernel_and_finish(built, qs, v_pad, l_pad, device)
+
+
+def kernel_and_finish(built, qs, v_pad: int, l_pad: int, device: torch.device) -> list:
+    """Run the POA kernels over prebuilt problem arrays and decode the
+    tapes natively into PoaResults."""
+    return kernel_finish_all(dispatch_bucket(built, qs, v_pad, l_pad, device))
+
+
+def _align_bucket(bgs, qs, v_pad: int, l_pad: int, device: torch.device) -> list:
+    """One bucket from Python base graphs: ``prepare_problem`` (ValueError
+    on a fan-in above P_MAX), the batch padded to a power of two with
+    copies, ``poa_global_kernel`` (the lane-padded contract), and the
+    tapes decoded in Python."""
+    from .poa import _finish_result
+
+    probs = [prepare_problem(bg, q, v_pad, l_pad) for bg, q in zip(bgs, qs)]
+    probs += [probs[0]] * (_next_pow2(max(len(probs), 4)) - len(probs))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    score, tape, tlen = poa_global_kernel(
+        t(np.stack([p.vcodes for p in probs])),
+        t(_slice_preds(np.stack([p.vpred for p in probs]))),
+        t(np.stack([p.is_sink for p in probs]).astype(np.uint8)),
+        t(np.asarray([p.nv for p in probs], dtype=np.int32)),
+        t(np.stack([p.q for p in probs])),
+        t(np.asarray([p.nq for p in probs], dtype=np.int32)),
+        t(make_init_row(l_pad)),
+    )
+    scores, tlens = score.cpu().numpy(), tlen.cpu().numpy()
+    ops, vids = unpack_tape(tape.cpu().numpy())
+    results = []
+    for i, (bg, q) in enumerate(zip(bgs, qs)):
+        n = int(tlens[i])
+        # (op, vertex, query position) triples in forward order
+        triples = []
+        qpos = 0
+        for op, v in zip(ops[i][:n][::-1], vids[i][:n][::-1]):
+            if op == OP_M:
+                triples.append(("M" if v >= 0 and q[qpos] == bg.codes[v] else "X", int(v), qpos))
+                qpos += 1
+            elif op == OP_I:
+                triples.append(("I", int(v), qpos))
+                qpos += 1
+            elif op == OP_D:
+                triples.append(("D", int(v), qpos))
+        results.append(_finish_result(bg, q, triples, int(scores[i]), 0, len(q)))
+    return results
 
 
 # ---------------------------------------------------------------------------

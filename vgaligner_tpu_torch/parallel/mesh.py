@@ -28,6 +28,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
+
 COLLECTIVES = {"all_reduce": 0, "all_gather_into_tensor": 0, "reduce_scatter_tensor": 0,
                "broadcast": 0}
 
@@ -126,10 +128,12 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
 
 
 def rank_device(mesh: Optional[Mesh], device) -> torch.device:
-    """The device a model object runs on: ``device``, or with a mesh the
-    rank's own device (a ``device`` of another type is an error)."""
+    """The device a model object runs on: ``device`` (the card when it is
+    None; ``device.resolve_device`` raises RuntimeError without one), or
+    with a mesh the rank's own device (a ``device`` of another type is an
+    error)."""
     if mesh is None:
-        return torch.device(device)
+        return resolve_device("cuda" if device is None else device)
     if device is not None and torch.device(device).type != mesh.device.type:
         raise ValueError(f"device {device} given with a mesh on {mesh.device}")
     return mesh.device

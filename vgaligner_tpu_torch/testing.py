@@ -173,19 +173,20 @@ def write_fasta(path: str, reads: List[str]) -> None:
 
 
 def random_poa_batch(seed: int, B: int, V: int, P: int, L: int,
-                     n_frac: float = 0.03, far_frac: float = 0.2):
+                     n_frac: float = 0.03, far_frac: float = 0.2, min_nv: Optional[int] = None):
     """Random padded POA problems in topological order, the layout the
     native builder gives the DP: vcodes [B,V] int8 (4 = N/pad), vpred
     [B,V,P] int32 (-1 dead), is_sink [B,V] uint8, nv [B] int32, q [B,L]
     int8, nq [B] int32.  Vertices without predecessors restart from the
     virtual source, a few edges reach far back, and every vertex without
-    a successor is a sink, so most problems have several sinks."""
+    a successor is a sink, so most problems have several sinks.  A
+    problem's nv is drawn from [``min_nv``, V], by default [V // 2, V]."""
     rng = np.random.default_rng(seed)
     vcodes = rng.integers(0, 4, (B, V)).astype(np.int8)
     vcodes[rng.random((B, V)) < n_frac] = 4
     vpred = np.full((B, V, P), -1, dtype=np.int32)
     is_sink = np.zeros((B, V), dtype=np.uint8)
-    nv = rng.integers(max(1, V // 2), V + 1, B).astype(np.int32)
+    nv = rng.integers(max(1, V // 2) if min_nv is None else min_nv, V + 1, B).astype(np.int32)
     for b in range(B):
         n = int(nv[b])
         vcodes[b, n:] = 4
