@@ -15,12 +15,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
        K1 chaining DP (fast) at the main path's shape (4,096 reads x 256
        anchors of real reads) and at A = 16,384 and 65,536; the gap cost
        for g = 0..1000;
-       K2 POA DP and K3 traceback on random DAG batches (P in 2/4/8, W in
-       128/256, V 256), at W 2,048/4,096/8,192 (V 256), at W 16,384 (the
-       one width of the CLI's ladder they still take; B 4, timed), at V
-       8,192 x W 16,384 (B 2, nv near 8,192, far predecessors: the
-       largest problem that reaches them; timed, with its bound), and at
-       the main path's chunk shape (1,024 x 256 x 128);
+       K2 POA DP and K3 traceback, the first ports that no route launches
+       now, on random DAG batches (P in 2/4/8, W in 128/256, V 256), at W
+       2,048/4,096/8,192 (V 256), at V 8,192 x W 16,384 (B 2, nv near
+       8,192, far predecessors: the largest problem the device route
+       has), where K8 is held to the same plain pair's outputs and timed
+       in turns with K2 + K3 (with both bounds), and at the main path's
+       chunk shape (1,024 x 256 x 128);
        K6, the POA DP and traceback in one kernel for rows up to 256
        columns, on batches with far predecessors and more far-referenced
        vertices than it pins (its backing store), P 2/4/8 x W 32/128/256,
@@ -28,16 +29,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
        the same CUDA tensors in turns (K2 + K3, K6, K6, K2 + K3); the
        lane-padded contract of the JAX package's VMEM-resident Pallas DP
        (poa_global_kernel, 1,024 x 256, L 100), which K6 now runs;
-       K8, the POA DP and traceback in one kernel for rows of 512-8,192
-       columns, one thread-block cluster a problem, at every width of
-       CLUSTER_WIDTHS x P 2/4/8 (V 256, 128 at W 8,192) and at V 8,192 x W
-       2,048 and W 8,192 x V 1,024, on batches with far predecessors, pin
-       overflow, a predecessor at and past its vertex and nv = 4; its
-       cluster size, clusters resident, shared memory a CTA, and ptxas
-       registers and spills;
-       K4 local POA, one block a problem, on random batches (P 2/4/8, W
-       128/256/2048, V 256/2048, problems with no positive cell and
-       nv < V), and held and timed at W 16,384, the one width it takes;
+       K8, the POA DP and traceback in one kernel for rows of 512-16,384
+       columns, one thread-block cluster a problem (512 columns a CTA, 1,024
+       at W 16,384), at every width of CLUSTER_WIDTHS x P 2/4/8 (V 256, 128
+       from W 8,192; at W 16,384 timed in turns with K2 + K3) and at V
+       8,192 x W 2,048 and W 8,192 x V 1,024, on batches with far
+       predecessors, pin overflow, a predecessor at and past its vertex
+       and nv = 4; its cluster size, clusters resident, shared memory a
+       CTA, and ptxas registers and spills of each instance;
+       K4 local POA, one block a problem (the first port, which no route
+       launches now), on random batches (P 2/4/8, W 128/256/2048, V
+       256/2048, problems with no positive cell and nv < V), and at W
+       16,384 (B 8 x V 128, and V 8,192) held and timed in turns with K9;
        K7 local POA, one warp a problem, for rows up to 256 columns, on
        P 2/4/8 x W 32/64/128/256 x V 64/256/2,048 batches with far
        predecessors past its ring, problems over its pin budget (its
@@ -45,11 +48,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
        below V and nv = 0; its ptxas registers and spills, and its
        occupancy at the rspoa batch shape;
        K9 local POA, one thread-block cluster a problem, for rows of
-       512-8,192 columns, at every width x P 2/4/8 with far predecessors,
+       512-16,384 columns, at every width x P 2/4/8 with far predecessors,
        pin overflow, a predecessor at and past its vertex and nv = 4 and
        0, and on chains whose best run takes a far edge (pinned, and on
-       the backing store) where a CTA's columns start (W 4,096 and
-       8,192); its occupancy and ptxas report;
+       the backing store) where a CTA's columns start (W 4,096, 8,192 and
+       16,384); its occupancy and ptxas report;
        K5 exact chaining DP on the real anchors at 4,096 x 256 and at
        A = 16,384 and 65,536, then both of its paths (one divide a row;
        one a pair, which a gap table with a negative entry or with scores
@@ -106,7 +109,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
      reads (K8 launched, the 10 kb read's subgraph on the native host
      POA, a seeded sample of 8 on the CPU); the host's seconds a chain
      and the card's problems/s;
-  9. the suite runner: ``run_suite.run_dataset`` on two synthetic
+  9. rows of 16,384 columns: ``align_global_batch`` and
+     ``align_local_batch`` on the card over five problems of 8.3-14 kb
+     queries on subgraphs under 8,192 base vertices: K8 and K9 launched
+     at W 16,384, K2, K3 and K4 not, every result equal to the host
+     oracle and the smallest problem's to the CPU route; then two 8.4 kb
+     reads through the CLI (abPOA, and rspoa + exact; one's POA on K8 and
+     K9 at W 16,384, the other's over the vertex cap on the host): K8
+     held to the plain pair on its chunk, the rspoa GAFs byte-identical
+     to the CPU run;
+ 10. the suite runner: ``run_suite.run_dataset`` on two synthetic
      datasets (seeds 0 and 1) at 512 reads of 100 bp, abPOA, fast, on the
      card (K1 and K6 launched) and on the CPU: every report field but the
      timings equal (reads_found, avg_jaccard, exact_rate); the card's
@@ -114,8 +126,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
 Every CLI phase resets the launch counters just before its run and
 reads them just after; a kernel's ``launches`` are those of the path
 that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K8: long reads,
-abPOA, where K2 and K3 now launch no time; K9, and K4, which launches
-no time there now: long reads, rspoa).
+abPOA, where K2 and K3 launch no time; K9, and K4, which launches no
+time there: long reads, rspoa; K8 and K9 at W 16,384: the library calls
+of phase 9).
 
 Then one JSON line of per-kernel results and, last, the device line.
 Each kernel's ``bound_ms`` is the larger of the bytes it must move
@@ -397,6 +410,20 @@ def phase_chain_kernels(index, reads, dev, results):
     print("[kernels] gap cost g=0..1000: card == CPU plain == rounded f64 table")
 
 
+def _c_call(entry, ptrs, name, *buffers):
+    """A call of the C entry ``entry`` on ``ptrs`` that holds ``buffers``,
+    the tensors behind those pointers, for as long as the call lives: a
+    closure over the pointers alone would let the allocator hand their
+    memory to the next tensor while the kernel still writes there."""
+    from vgaligner_tpu_torch import kernels
+
+    def call():
+        kernels.check(entry(*ptrs), name)
+        return buffers
+
+    return call
+
+
 def _chain_kernel_only(args, table, exact):
     """One launch of K5 (``exact``: one divide a row) or K1 through its
     C entry on outputs allocated once."""
@@ -418,11 +445,9 @@ def _chain_kernel_only(args, table, exact):
     if exact:
         tab = C._device_gap_table(table, K, dev)
         ptrs = [*ins, tab.data_ptr(), B, A, K, 50, len(table) - 1, 1, *outs]
-        fn = lambda: kernels.check(so.vg_chain_dp_exact(*ptrs), "chain_dp_exact")  # noqa: E731
-    else:
-        ptrs = [*ins, B, A, K, 50, 1000, *outs]
-        fn = lambda: kernels.check(so.vg_chain_dp(*ptrs), "chain_dp")  # noqa: E731
-    return fn
+        return _c_call(so.vg_chain_dp_exact, ptrs, "chain_dp_exact", f, pred, cmax, tab)
+    ptrs = [*ins, B, A, K, 50, 1000, *outs]
+    return _c_call(so.vg_chain_dp, ptrs, "chain_dp", f, pred, cmax)
 
 
 def _scattered_anchors(seed, B, A, dev):
@@ -487,9 +512,14 @@ def phase_poa_kernels(dev, results):
         s_k, k_k, tb_k = PD.poa_dp(*t, init)
         tape_k, tl_k = PD.poa_traceback(tb_k, t[1], k_k, t[5])
         torch.cuda.synchronize()
-        s_p, k_p, tb_p = PD.poa_dp_plain(*t, init)
-        tape_p, tl_p = PD.poa_traceback_plain(tb_k, t[1], k_k, t[5])
-        torch.cuda.synchronize()
+        out = {}
+
+        def plain():
+            out["dp"] = PD.poa_dp_plain(*t, init)
+            out["tb"] = PD.poa_traceback_plain(tb_k, t[1], k_k, t[5])
+
+        plain_ms = _cuda_ms(plain, 1)
+        (s_p, k_p, tb_p), (tape_p, tl_p) = out["dp"], out["tb"]
         if not (torch.equal(s_k, s_p) and torch.equal(k_k, k_p)):
             raise AssertionError(f"poa_dp P={P} W={W} V={V}: score/best_sink differ")
         nv = arrs[3]
@@ -506,7 +536,7 @@ def phase_poa_kernels(dev, results):
         tb_err.append(_max_abs_err(tl_k, tl_p))
         print(f"[kernels] poa_dp + poa_traceback P={P} W={W} V={V} B={B}: "
               "score/best_sink/tbits[:nv]/tape[:tlen]/tlen equal")
-        return t, init, tb_k, k_k
+        return t, init, tb_k, k_k, (s_p, k_p, tb_p, tape_p, tl_p, plain_ms)
 
     # no CLI run launches K2 + K3 now (K6 and K8 take their rows), so the
     # grid is shallow: V 256 only, each plain twin's vertex loop short
@@ -516,23 +546,18 @@ def phase_poa_kernels(dev, results):
     # rows over 1,024 columns (reads over 1,023 bp): several columns a thread
     for W in (2048, 4096, 8192):
         run_batch(200 + W + 256, 16, 256, 2, W)
-    # rows of 16,384 columns (reads of 8,192-16,383 bp), which only K2 + K3 take
-    t16, init16, tb16, k16 = run_batch(220, 4, 128, 4, 16384)
-    k2_16 = _cuda_ms(lambda: PD.poa_dp(*t16, init16), 5)
-    k3_16 = _cuda_ms(lambda: PD.poa_traceback(tb16, t16[1], k16, t16[5]), 5)
-    print(f"[kernels] W 16,384 (B 4, V 128, P 4): K2 {k2_16:.4f} ms, K3 {k3_16:.4f} ms")
-    # the largest problem they take: V 8,192 x W 16,384, nv near V, far predecessors
-    tw, initw, tbw, kw = run_batch(230, 2, 8192, 4, 16384, far_frac=0.3, min_nv=8000)
-    k2_w = _cuda_ms(lambda: PD.poa_dp(*tw, initw), 3)
-    tape_w, tlen_w = PD.poa_traceback(tbw, tw[1], kw, tw[5])
-    k3_w = _cuda_ms(lambda: PD.poa_traceback(tbw, tw[1], kw, tw[5]), 3)
-    k2_b, k2_by = _bound(*_poa_dp_work(tw), F32_OPS_PER_S)
-    k3_b, k3_by = _bound(*_walk_work(tlen_w, *tbw.shape), F32_OPS_PER_S)
-    print(f"[kernels] V 8,192 x W 16,384 (B 2, P 4, nv {tw[3].tolist()}, far predecessors): "
-          f"K2 {k2_w:.4f} ms, bound {k2_b:.4f} ({k2_by}); K3 {k3_w:.4f} ms, bound {k3_b:.4f} "
-          f"({k3_by}), {int(tlen_w.sum())} walk steps")
-    del tw, tbw, tape_w
-    t, init, tbits, sinks = run_batch(7, 1024, 256, 2, 128)
+    # rows of 16,384 columns (reads of 8,192-16,383 bp): K8 takes them
+    # (16 CTAs of 1,024 columns; its grid at V 128 is K8's phase), here
+    # the largest problem the device route gives them: V 8,192 x W 16,384,
+    # nv near V, far predecessors past the pins, with K8 held to the
+    # plain pair run above and timed in turns with K2 + K3, the first
+    # ports no route launches now
+    tw, initw, _tbw, _kw, plainw = run_batch(230, 2, 8192, 4, 16384, far_frac=0.3, min_nv=8000)
+    results["poa_dp_tb_cluster_w16384"] = _wide_k8(
+        f"V 8,192 x W 16,384 (B 2, P 4, nv {tw[3].tolist()}, far predecessors)", tw, initw,
+        plainw, 2)
+    del tw, _tbw, plainw
+    t, init, tbits, sinks, _plain = run_batch(7, 1024, 256, 2, 128)
     plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
     plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
     print(f"[kernels] poa 1024x256x128 P=2 equal; plain poa_dp {plain_dp:.3f} ms, "
@@ -560,6 +585,46 @@ def phase_poa_kernels(dev, results):
         max_abs_err=max(tb_err), plain_ms=plain_tb,
         **_bound_keys(*_walk_work(tlen, *tbits.shape), F32_OPS_PER_S))
     return t, init
+
+
+def _wide_k8(label, t, init, plain, reps):
+    """K8 at W 16,384 against the plain pair's outputs ``plain`` (score,
+    best_sink, tbits, tape, tlen, and its ms) on the same CUDA tensors:
+    score, best_sink, tbits below nv, tape, tlen and n_backing bit for
+    bit; then K8 and K2 + K3 in turns.  Returns K8's result entry."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    ws, wk, wtb, wtape, wtl, plain_ms = plain
+    errs = []
+    score, sink, tbits, tape, tlen, n_backing = PD.poa_dp_tb_cluster(*t, init)
+    torch.cuda.synchronize()
+    _check_equal(f"poa_dp_tb_cluster {label}", ("score", "best_sink", "tape", "tlen",
+                                                 "n_backing"),
+                 (score, sink, tape, tlen, n_backing),
+                 (ws, wk, wtape, wtl, PD.backing_rows_plain(t[1], t[3])), errs)
+    below_nv = torch.arange(tbits.shape[1], device=tbits.device)[None, :] < t[3][:, None]
+    if not torch.equal(tbits[below_nv], wtb[below_nv]):
+        raise AssertionError(f"poa_dp_tb_cluster {label}: tbits differ below nv")
+    del tbits
+    k2, k3, k8 = _time_in_turns(t, init, reps, fused=PD.poa_dp_tb_cluster)
+    B, V, P = t[1].shape
+    W = t[4].shape[1] + 1
+    dp_bytes, dp_ops = _poa_dp_work(t)
+    tb_bytes, tb_ops = _walk_work(tlen, B, V, W, False)
+    entry = dict(max_abs_err=max(errs), ms=sum(k8) / 2, plain_ms=plain_ms,
+                 **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
+    k2_b, k2_by = _bound(dp_bytes, dp_ops, F32_OPS_PER_S)
+    k3_b, k3_by = _bound(*_walk_work(tlen, B, V, W), F32_OPS_PER_S)
+    ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, W, V)
+    print(f"[kernels] {label}: K8 equal to the plain pair ({int((n_backing > 0).sum())} "
+          f"problems on its backing store, {int(tlen.sum())} walk steps); in turns "
+          f"{_turns_line(k2, k3, k8, 'K8')}; K8 bound {entry['bound_ms']:.4f} "
+          f"({entry['bound_by']}), K2 bound {k2_b:.4f} ({k2_by}), K3 bound {k3_b:.4f} "
+          f"({k3_by}); {ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared "
+          f"memory a CTA; plain pair {plain_ms:.3f} ms")
+    return entry
 
 
 def _fused_check(t, init, label, errs, fused=None):
@@ -656,8 +721,10 @@ def phase_fused_kernel(dev, results, main_t, main_init):
 def phase_cluster_kernel(dev, results):
     """K8 at every width of CLUSTER_WIDTHS x P 2/4/8 on far and near
     batches (far predecessors, pin overflow, a predecessor at and past its
-    vertex, nv = 4), at V 8,192 x W 2,048, and at W 8,192 x V 1,024; its
-    cluster occupancy and ptxas report."""
+    vertex, nv = 4), at V 8,192 x W 2,048, and at W 8,192 x V 1,024; at W
+    16,384 (16 CTAs of 1,024 columns) timed in turns with K2 + K3; its
+    cluster occupancy and ptxas report of each instance (P / columns a
+    CTA)."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -685,9 +752,13 @@ def phase_cluster_kernel(dev, results):
               f"pair; {int((nb > 0).sum())} problems on the backing store (max {int(nb.max())} "
               f"rows); {ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared "
               "memory a CTA")
+        if W == 16384:
+            k2, k3, k8 = _time_in_turns(t, init, 5, fused=PD.poa_dp_tb_cluster)
+            print(f"[kernels] K8 P={P} W={W} V={V} B={B} in turns: "
+                  f"{_turns_line(k2, k3, k8, 'K8')}")
     regs = _ptxas(kernels.build_log, "poa_dp_tb_cluster_kernel")
-    print(f"[kernels] K8: {on_backing} problems of the grid on the backing store; ptxas (P: "
-          "registers, spill store/load bytes): " + "; ".join(
+    print(f"[kernels] K8: {on_backing} problems of the grid on the backing store; ptxas (P/"
+          "columns a CTA: registers, spill store/load bytes): " + "; ".join(
               f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
     results["poa_dp_tb_cluster"] = dict(max_abs_err=max(errs))
 
@@ -723,22 +794,45 @@ def phase_local_kernel(dev, results):
                     raise AssertionError("poa_local batch lacks its edge cases")
                 print(f"[kernels] poa_local (K4) P={P} W={W} V={V} B=32: best/tape/tlen/qend "
                       f"equal (max tlen {int(got[2].max())})")
-    # rows of 16,384 columns (reads of 8,192-16,383 bp), the one width of
-    # the CLI's ladder K4 still takes: held and timed
+    # rows of 16,384 columns (reads of 8,192-16,383 bp): K9 takes them (8
+    # CTAs of 2,048 columns); K4, the first port no route launches now, is
+    # held and timed in turns with it
+    names = ("best", "tape", "tlen", "qend")
     t = [torch.from_numpy(a).to(dev)
          for a in with_local_edge_cases(random_local_batch(16, 8, 128, 4, 16383, far_frac=0.3))]
     want = PD.poa_local_plain(*t)
-    _check_equal("poa_local (K4) W=16384", ("best", "tape", "tlen", "qend"),
-                 PD.poa_local(*t), want, errs)
-    ms = _cuda_ms(lambda: PD.poa_local_block(*t), 10)
-    alone = _cuda_ms(_local_kernel_only(t, "block"), 10)
+    _check_equal("poa_local (K4) W=16384", names, PD.poa_local_block(*t), want, errs)
+    k9_errs = []
+    _check_equal("poa_local (K9 through the route) W=16384", names, PD.poa_local(*t), want,
+                 k9_errs)
+    turns, line = _local_turns(t, "K9")
     plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*t), 1)
-    results["poa_local"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                                **_bound_keys(*_local_work(t), F32_OPS_PER_S))
-    print(f"[kernels] poa_local (K4) W 16,384 (B 8, V 128, P 4, through poa_local): equal to the "
-          f"twin; {ms:.4f} ms through its wrapper, {alone:.4f} ms alone (bound "
-          f"{results['poa_local']['bound_ms']:.4f}, {results['poa_local']['bound_by']}; plain "
-          f"{plain_ms:.3f})")
+    results["poa_local"] = dict(max_abs_err=max(errs), ms=sum(turns["K4", "wrapper"]) / 2,
+                                plain_ms=plain_ms, **_bound_keys(*_local_work(t), F32_OPS_PER_S))
+    print(f"[kernels] poa_local W 16,384 (B 8, V 128, P 4): K4 and K9 (through poa_local) equal "
+          f"to the twin; in turns {line} ms (bound {results['poa_local']['bound_ms']:.4f}, "
+          f"{results['poa_local']['bound_by']}; plain {plain_ms:.3f})")
+    # the largest problem the device route gives them: V 8,192 x W 16,384
+    t = [torch.from_numpy(a).to(dev)
+         for a in random_local_batch(17, 2, 8192, 4, 16383, far_frac=0.3, min_nv=8000)]
+    out = {}
+    plain_ms = _cuda_ms(lambda: out.update(want=PD.poa_local_plain(*t)), 1)
+    _check_equal("poa_local (K4) V 8,192 x W 16,384", names, PD.poa_local_block(*t),
+                 out["want"], errs)
+    _check_equal("poa_local_cluster (K9) V 8,192 x W 16,384", names,
+                 PD.poa_local_cluster(*t)[:4], out["want"], k9_errs)
+    results["poa_local"]["max_abs_err"] = max(errs)
+    turns, line = _local_turns(t, "K9", reps=3)
+    P = t[1].shape[-1]
+    ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, 16384, 8192)
+    results["poa_local_cluster_w16384"] = dict(
+        max_abs_err=max(k9_errs), ms=sum(turns["K9", "wrapper"]) / 2, plain_ms=plain_ms,
+        **_bound_keys(*_local_work(t), F32_OPS_PER_S))
+    k9 = results["poa_local_cluster_w16384"]
+    print(f"[kernels] poa_local V 8,192 x W 16,384 (B 2, P {P}, nv {t[2].tolist()}, max tlen "
+          f"{int(out['want'][2].max())}): K4 and K9 equal to the twin; in turns {line} ms; K9 "
+          f"bound {k9['bound_ms']:.4f} ({k9['bound_by']}), {ctas} CTAs a cluster, {clusters} "
+          f"clusters resident, {smem} B shared memory a CTA; plain {plain_ms:.3f} ms")
 
 
 def _ptxas(log, kernel):
@@ -811,8 +905,8 @@ def phase_local_cluster_kernel(dev, results):
     batches (far predecessors past the ring, pin overflow, a predecessor
     at and past its vertex, nv = 4 and 0), and on chains whose best run
     takes a far edge, pinned and on the backing store, exactly where a
-    CTA's columns start (W 4,096 and 8,192); its cluster occupancy and
-    ptxas report."""
+    CTA's columns start (W 4,096, 8,192 and 16,384); its cluster
+    occupancy and ptxas report."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -845,7 +939,7 @@ def phase_local_cluster_kernel(dev, results):
                   f"n_backing equal; {int((nb > 0).sum())} problems on the backing store; "
                   f"{ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared memory "
                   "a CTA")
-    for W, boundary in ((4096, 2048), (8192, 4096)):
+    for W, boundary in ((4096, 2048), (8192, 4096), (16384, 14336)):
         ctas = PD.poa_local_cluster_occupancy(2, W, boundary + 200)[0]
         if boundary % (W // ctas) != 0:
             raise AssertionError(f"column {boundary} does not start a CTA at W {W}")
@@ -856,8 +950,9 @@ def phase_local_cluster_kernel(dev, results):
             raise AssertionError("the far-edge batch lost its backing row or its pin")
     regs = _ptxas(kernels.build_log, "poa_local_cluster_kernel")
     print(f"[kernels] K9: {on_backing} problems of the grid on the backing store; a best run "
-          "over a far edge at a CTA's first column (2,048 of W 4,096, 4,096 of W 8,192), pinned "
-          "and on the backing store, equal; ptxas (P: registers, spill store/load bytes): "
+          "over a far edge at a CTA's first column (2,048 of W 4,096, 4,096 of W 8,192, 14,336 "
+          "of W 16,384), pinned and on the backing store, equal; ptxas (P: registers, spill "
+          "store/load bytes): "
           + "; ".join(f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
     results["poa_local_cluster"] = dict(max_abs_err=max(errs))
 
@@ -1102,17 +1197,18 @@ def _local_kernel_only(args, kind):
                    torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
         nb = torch.empty(B, dtype=torch.int32, device=dev)
         ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
-        return lambda: kernels.check(so.vg_poa_local_cluster(*ptrs), "poa_local_cluster")
+        return _c_call(so.vg_poa_local_cluster, ptrs, "poa_local_cluster", scratch, outs, nb)
     if kind == "warp":
         scratch = [torch.empty((B, V, W), dtype=torch.int16, device=dev),
                    torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
         nb = torch.empty(B, dtype=torch.int32, device=dev)
         ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
-        return lambda: kernels.check(so.vg_poa_local_warp(*ptrs), "poa_local_warp")
+        return _c_call(so.vg_poa_local_warp, ptrs, "poa_local_warp", scratch, outs, nb)
     scratch = [torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev),
                torch.zeros((B, V, W), dtype=torch.uint8, device=dev)]
     ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), stream]
-    return lambda: kernels.check(so.vg_poa_local(*ptrs), "poa_local")
+    return _c_call(so.vg_poa_local, ptrs, "poa_local", scratch, outs)
+
 
 
 def _local_turns(args, new="K7", reps=10):
@@ -1436,6 +1532,148 @@ def _long_chunk_kernels(args, card, results):
           f"({results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}) ({card})")
 
 
+def phase_wide_route(work, prefix, gfa, graph, dev, card):
+    """Rows of 16,384 columns through the entry points a user calls:
+    ``align_global_batch`` and ``align_local_batch`` on the card over
+    ``testing.wide_route_problems`` (subgraphs of 1,096-7,909 base
+    vertices, queries of 8.3-14 kb), each with the launch counters reset
+    just before it and read just after: K8 and K9 launched, at W 16,384
+    only, K2, K3, K4, K6 and K7 not; every result equal to the host
+    oracle (``poa_global_host_native``, ``align_local_no_gap_host``), and
+    the smallest problem's to the ``device="cpu"`` route.  Then
+    ``testing.wide_reads`` (8.4 kb: a 3 kb path window and an inserted
+    stretch) through the CLI, abPOA and rspoa + exact, with where each
+    read's POA ran: one read's corridor subgraph lands under the
+    8,192-vertex cap (K8 and K9 at W 16,384), the other over it (the host
+    POA).  The rspoa run's GAFs are held to the CPU run's; the abPOA
+    run's K8 launch is held to the plain pair on the card on its real
+    problems (the CPU run of that chunk, 8 ladder rows of V 8,192 x W
+    16,384, takes minutes of host time).  Returns the launches of the two
+    library calls."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.models import poa_aligner as PA
+    from vgaligner_tpu_torch.native import poa_global_host_native
+    from vgaligner_tpu_torch.ops import poa as OP
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import wide_reads, wide_route_problems, write_fasta
+
+    t0 = time.monotonic()
+    problems = wide_route_problems(graph)
+    shapes = [(sum(len(x) for x in n), len(q)) for n, _e, q in problems]
+    seen = []
+    real = PD.poa_dp_tb_cluster, PD.poa_local_cluster, PA.poa_global_host_native, \
+        OP.align_local_no_gap_host
+
+    k8_args = []
+
+    def k8(*a):
+        seen.append(("K8", a[0].shape[1], a[4].shape[1] + 1))
+        k8_args.append(a)
+        return real[0](*a)
+
+    def k9(*a, **kw):
+        seen.append(("K9", a[0].shape[1], a[3].shape[1] + 1))
+        return real[1](*a, **kw)
+
+    def host_global(*a):
+        seen.append(("host", sum(len(x) for x in a[0]), len(a[2]) + 1))
+        return real[2](*a)
+
+    def host_local(*a):
+        seen.append(("host", sum(len(x) for x in a[0]), len(a[2]) + 1))
+        return real[3](*a)
+
+    legs = {}
+    others = ("poa_dp", "poa_traceback", "poa_local", "poa_dp_tb", "poa_local_warp")
+    PD.poa_dp_tb_cluster, PD.poa_local_cluster = k8, k9
+    try:
+        for name, fn, want in (("align_global_batch", PD.align_global_batch,
+                                "poa_dp_tb_cluster"),
+                               ("align_local_batch", PD.align_local_batch, "poa_local_cluster")):
+            del seen[:]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t1 = time.monotonic()
+            got = fn(problems, dev)
+            torch.cuda.synchronize()
+            took = time.monotonic() - t1
+            launches = kernels.launch_counts()
+            if launches[want] <= 0 or any(launches[k] for k in others):
+                raise AssertionError(f"[wide route] {name}: launches {launches}")
+            if not seen or any(w != 16384 for _k, _v, w in seen):
+                raise AssertionError(f"[wide route] {name}: launches at {seen}, not W 16,384")
+            legs[name] = (got, took, launches, list(seen))
+    finally:
+        PD.poa_dp_tb_cluster, PD.poa_local_cluster = real[:2]
+    t1 = time.monotonic()
+    for i, p in enumerate(problems):
+        if legs["align_global_batch"][0][i] != poa_global_host_native(*p):
+            raise AssertionError(f"[wide route] align_global_batch problem {i} differs from "
+                                 "poa_global_host_native")
+        if legs["align_local_batch"][0][i] != OP.align_local_no_gap_host(*p):
+            raise AssertionError(f"[wide route] align_local_batch problem {i} differs from "
+                                 "align_local_no_gap_host")
+    oracle_s = time.monotonic() - t1
+    small = min(range(len(problems)), key=lambda i: shapes[i][0])
+    t1 = time.monotonic()
+    if (PD.align_global_batch([problems[small]], "cpu")[0] != legs["align_global_batch"][0][small]
+            or PD.align_local_batch([problems[small]], torch.device("cpu"))[0]
+            != legs["align_local_batch"][0][small]):
+        raise AssertionError(f"[wide route] problem {small} differs between the card and the "
+                             "CPU route")
+    cpu_s = time.monotonic() - t1
+    for name, (got, took, launches, calls) in legs.items():
+        print(f"[wide route] {name} on the card over {len(problems)} problems (base vertices, "
+              f"query bp) {shapes}: {took:.2f} s ({card}); launches (kernel, V, W) {calls}; "
+              f"counters {launches}; scores {[r.best_score for r in got]}")
+    print(f"[wide route] every result equal to the host oracle ({oracle_s:.2f} s) and problem "
+          f"{small} to the CPU route ({cpu_s:.2f} s)")
+
+    reads = wide_reads(graph)
+    fasta = os.path.join(work, "wide.fa")
+    write_fasta(fasta, reads)
+    lens = {f"read{i}": len(r) for i, r in enumerate(reads)}
+    for engine, argv, must in (("abpoa", ["-p", "abpoa", "--precision", "fast"],
+                                "poa_dp_tb_cluster"),
+                               ("rspoa", ["-p", "rspoa", "--precision", "exact"],
+                                "poa_local_cluster")):
+        out = os.path.join(work, f"wide-{engine}", "smoke")
+        del seen[:], k8_args[:]
+        PD.poa_dp_tb_cluster, PD.poa_local_cluster = k8, k9
+        PA.poa_global_host_native, OP.align_local_no_gap_host = host_global, host_local
+        try:
+            took, launches = _drive(f"the wide reads' {engine} path", prefix, fasta, gfa, out,
+                                    argv, (must,), others)
+        finally:
+            PD.poa_dp_tb_cluster, PD.poa_local_cluster = real[:2]
+            PA.poa_global_host_native, OP.align_local_no_gap_host = real[2:]
+        if not any(k != "host" and w == 16384 for k, _v, w in seen):
+            raise AssertionError(f"[wide route] the {engine} CLI launched no cluster kernel at "
+                                 f"W 16,384: {seen}")
+        calls = list(seen)
+        _check_gaf(out, len(reads), lens)
+        t1 = time.monotonic()
+        if engine == "abpoa":
+            errs = []
+            for a in k8_args:
+                real_rows = a[3] > 0
+                _fused_check([x[real_rows].contiguous() for x in a[:6]], a[6],
+                             "poa_dp_tb_cluster on the wide reads' chunk", errs,
+                             PD.poa_dp_tb_cluster)
+            held = "K8 equal to the plain pair on the card on its chunk's real problems"
+        else:
+            n = _cpu_rerun(work, f"wide-{engine}", prefix, gfa, reads, out, argv, len(reads))
+            held = f"chains and alignments GAF of all {n} reads byte-identical to the CPU run"
+        print(f"[wide route] map -p {engine} -D on {len(reads)} reads of "
+              f"{sorted(set(lens.values()))} bp: card {took:.2f} s ({card}); POA calls (kernel or "
+              f"host, V, W) {calls}; {held} ({time.monotonic() - t1:.2f} s); launches "
+              f"{launches}")
+    print(f"[wide route] done in {time.monotonic() - t0:.2f} s ({card})")
+    return legs["align_global_batch"][2], legs["align_local_batch"][2]
+
+
 def _route_problems(index, aligner, chains):
     """The Python route's ranges and problems of ``chains``, held equal
     to the native extractor's (``_extract``): handles, trimmed labels,
@@ -1628,34 +1866,42 @@ def phase_suite(work, card):
     return all_launches
 
 
-def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa):
-    """The per-kernel result line: each kernel with the launches of the
-    path that runs it and its measured and bound times."""
+def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa,
+                launches_wide, launches_wide_local):
+    """The per-kernel result line: each kernel (K8 and K9 once more at W
+    16,384, with the launches of the 16,384-column route leg) with the
+    launches of the path that runs it and its measured and bound times."""
     k2_replaces = "vgaligner_tpu/ops/poa_pallas2.py:434, vgaligner_tpu/ops/poa_pallas.py:258"
     k3_replaces = "vgaligner_tpu/ops/poa_device.py:325"
-    other = "(rows of 16,384 columns, and lane-padded widths off the power-of-two ladder)"
+    k4_replaces = "vgaligner_tpu/ops/poa_device.py:1075"
+    first = "(the first port, at any width up to 16,384; no route launches it)"
+    wide = "(rows of 16,384 columns, and widths off the power-of-two ladder padded to the next)"
     sources = {
         "chain_dp": ("chain_dp.cu", "vgaligner_tpu/ops/chain_pallas.py:187", launches),
-        "poa_dp": ("poa_dp.cu", f"{k2_replaces} {other}", launches_long),
-        "poa_traceback": ("poa_traceback.cu", f"{k3_replaces} {other}", launches_long),
+        "poa_dp": ("poa_dp.cu", f"{k2_replaces} {first}", launches_long),
+        "poa_traceback": ("poa_traceback.cu", f"{k3_replaces} {first}", launches_long),
         "poa_dp_tb": ("poa_dp_tb.cu", f"{k2_replaces}, {k3_replaces} (rows up to 256 "
                       "columns)", launches),
         "poa_dp_tb_cluster": ("poa_dp_tb_cluster.cu", f"{k2_replaces}, {k3_replaces} (rows of "
                               "512-8,192 columns)", launches_long),
-        "poa_local": ("poa_local.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows of 16,384 "
-                      "columns)", launches_long_rspoa),
-        "poa_local_warp": ("poa_local_warp.cu", "vgaligner_tpu/ops/poa_device.py:1075 (rows up "
-                           "to 256 columns)", launches_rspoa),
-        "poa_local_cluster": ("poa_local_cluster.cu", "vgaligner_tpu/ops/poa_device.py:1075 "
-                              "(rows of 512-8,192 columns)", launches_long_rspoa),
+        "poa_dp_tb_cluster_w16384": ("poa_dp_tb_cluster.cu", f"{k2_replaces}, {k3_replaces} "
+                                     f"{wide}", launches_wide, "poa_dp_tb_cluster"),
+        "poa_local": ("poa_local.cu", f"{k4_replaces} {first}", launches_long_rspoa),
+        "poa_local_warp": ("poa_local_warp.cu", f"{k4_replaces} (rows up to 256 columns)",
+                           launches_rspoa),
+        "poa_local_cluster": ("poa_local_cluster.cu", f"{k4_replaces} (rows of 512-8,192 "
+                              "columns)", launches_long_rspoa),
+        "poa_local_cluster_w16384": ("poa_local_cluster.cu", f"{k4_replaces} {wide}",
+                                     launches_wide_local, "poa_local_cluster"),
         "chain_dp_exact": ("chain_dp_exact.cu", "vgaligner_tpu/ops/chain.py:102-177",
                            launches_rspoa),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"kernels": [
-        dict(name=name, route="cuda", source=f"vgaligner_tpu_torch/kernels/csrc/{src}",
-             replaces=rep, launches=counts[name], **{k: results[name][k] for k in keys})
-        for name, (src, rep, counts) in sources.items()
+        dict(name=name, route="cuda", source=f"vgaligner_tpu_torch/kernels/csrc/{src[0]}",
+             replaces=src[1], launches=src[2][src[3] if len(src) > 3 else name],
+             **{k: results[name][k] for k in keys})
+        for name, src in sources.items()
     ]}
 
 
@@ -1712,12 +1958,15 @@ def main() -> int:
         launches_long, launches_long_rspoa = timed("long-read CLI", phase_long_reads, work,
                                                    prefix, gfa, graph, card, results)
         timed("python route", phase_python_route, index, graph, reads, dev, card)
+        launches_wide, launches_wide_local = timed("wide route", phase_wide_route, work, prefix,
+                                                   gfa, graph, dev, card)
         timed("suite", phase_suite, work, card)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
-    line = kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa)
+    line = kernel_line(results, launches, launches_rspoa, launches_long, launches_long_rspoa,
+                       launches_wide, launches_wide_local)
     print(f"[done] smoke took {time.monotonic() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,9 @@ import torch
 from vgaligner_tpu_torch.ops import chain as C
 from vgaligner_tpu_torch.ops import poa_device as PD
 from vgaligner_tpu_torch.testing import (far_jump_local_batch, random_local_batch,
-                                         random_poa_batch, sample_reads, with_local_edge_cases,
-                                         with_poa_edge_cases, write_synthetic_gfa)
+                                         random_poa_batch, sample_reads, wide_route_problems,
+                                         with_local_edge_cases, with_poa_edge_cases,
+                                         write_synthetic_gfa)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_device")]
 K = 11
@@ -141,17 +142,86 @@ def _cluster_matches_plain(dev, arrs):
 
 
 @pytest.mark.parametrize("P,W,V", [(2, 512, 256), (4, 1024, 128), (8, 2048, 128), (2, 4096, 96),
-                                   (4, 8192, 64), (2, 2048, 8192)])
+                                   (4, 8192, 64), (2, 2048, 8192), (2, 16384, 128),
+                                   (4, 16384, 96), (8, 16384, 64)])
 def test_poa_dp_tb_cluster_kernel_matches_plain(cuda_device, P, W, V):
-    """Every width of CLUSTER_WIDTHS (1-16 CTAs a cluster), V 8,192 at W
-    2,048: far predecessors beyond the row ring, problems over the pin
-    budget (the backing store), a predecessor at and past its vertex, nv
-    far below V, and problems within the ring."""
+    """Every width of CLUSTER_WIDTHS (1-16 CTAs of 512 columns a cluster,
+    16 of 1,024 at W 16,384), V 8,192 at W 2,048: far predecessors beyond
+    the row ring, problems over the pin budget (the backing store), a
+    predecessor at and past its vertex, nv far below V, and problems
+    within the ring."""
     far = with_poa_edge_cases(random_poa_batch(P * W + V, 6, V, P, W - 1, far_frac=0.3),
                               empty=False)
     near = random_poa_batch(P * W + V + 1, 2, V, P, W - 1, far_frac=0.0)
     n_backing = _cluster_matches_plain(cuda_device, [np.concatenate(x) for x in zip(far, near)])
     assert (n_backing[:6] > 0).any() and (n_backing[6:] == 0).all()
+
+
+def test_poa_dp_tb_cluster_kernel_at_its_largest_problem(cuda_device):
+    """V 8,192 x W 16,384 (the device route's vertex cap and widest row),
+    nv near V, far predecessors past the pins: equal to the plain pair."""
+    arrs = random_poa_batch(230, 2, 8192, 4, 16383, far_frac=0.3, min_nv=8000)
+    assert (_cluster_matches_plain(cuda_device, arrs) > 0).all()
+
+
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_cluster_kernels_resident_at_the_widest_rows(cuda_device, P):
+    """At W 16,384 and V 8,192 the card keeps a cluster of each kernel
+    resident: K8's 16 CTAs of 1,024 columns, K9's 8 of 2,048."""
+    ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, 16384, 8192)
+    assert ctas == 16 and clusters > 0 and smem <= 232448
+    ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, 16384, 8192)
+    assert ctas == 8 and clusters > 0 and smem <= 232448
+
+
+def test_off_ladder_widths_take_the_redesigned_kernels(cuda_device):
+    """Rows off the power-of-two ladder (the lane-padded contract's l_w
+    384 and 9,088, and local rows of 300 and 9,000 columns) run padded
+    on K8 and K9, never K2, K3 or K4, equal to the unpadded plain twins."""
+    dev = cuda_device
+    for L in (300, 9000):
+        arrs = random_poa_batch(L, 4, 128, 2, L)
+        t = [torch.from_numpy(a).to(dev) for a in arrs]
+        init = torch.from_numpy(PD.make_init_row(L)).to(dev)
+        PD.kernels.reset_launch_counts()
+        score, tape, tlen = PD.poa_global_kernel(*t, init)
+        local = PD.poa_local(*(t[i] for i in (0, 1, 3, 4, 5)))
+        launches = PD.kernels.launch_counts()
+        assert launches["poa_dp_tb_cluster"] == launches["poa_local_cluster"] == 1
+        assert launches["poa_dp"] == launches["poa_traceback"] == launches["poa_local"] == 0
+        q_w, init_w = PD.lane_pad(t[4], init)
+        ws, wk, wtb = PD.poa_dp_plain(*t[:4], q_w, t[5], init_w)
+        wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
+        assert torch.equal(score, ws) and torch.equal(tlen, wtl) and torch.equal(tape, wtape)
+        for g, w in zip(local, PD.poa_local_plain(*(t[i] for i in (0, 1, 3, 4, 5)))):
+            assert torch.equal(g, w)
+
+
+def test_wide_rows_take_the_cluster_kernels(cuda_device):
+    """Problems of 8,192-16,383 bp queries on subgraphs under 8,192 base
+    vertices through ``align_global_batch`` and ``align_local_batch``:
+    K8 and K9 at W 16,384, never K2, K3 or K4, and every result the host
+    oracle's."""
+    import os
+    import tempfile
+
+    from vgaligner_tpu_torch.graph import graph_from_gfa
+    from vgaligner_tpu_torch.native import poa_global_host_native
+    from vgaligner_tpu_torch.ops.poa import align_local_no_gap_host
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gfa = os.path.join(tmp, "g.gfa")
+        write_synthetic_gfa(gfa, seed=0)
+        problems = wide_route_problems(graph_from_gfa(gfa))[:2]
+    PD.kernels.reset_launch_counts()
+    got_g = PD.align_global_batch(problems, cuda_device)
+    got_l = PD.align_local_batch(problems, cuda_device)
+    launches = PD.kernels.launch_counts()
+    assert launches["poa_dp_tb_cluster"] >= 1 and launches["poa_local_cluster"] >= 1
+    assert launches["poa_dp"] == launches["poa_traceback"] == launches["poa_local"] == 0
+    for p, g, loc in zip(problems, got_g, got_l):
+        assert g == poa_global_host_native(*p)
+        assert loc == align_local_no_gap_host(*p)
 
 
 def test_long_reads_take_the_cluster_kernel(cuda_device, tmp_path):
@@ -252,9 +322,10 @@ def _local_cluster_matches_plain(dev, arrs):
 
 @pytest.mark.parametrize("P,W,V", [(2, 512, 256), (4, 1024, 128), (8, 2048, 128), (2, 4096, 96),
                                    (4, 8192, 64), (2, 2048, 4096), (8, 4096, 128),
-                                   (2, 8192, 128)])
+                                   (2, 8192, 128), (2, 16384, 128), (4, 16384, 96),
+                                   (8, 16384, 64)])
 def test_poa_local_cluster_kernel_matches_plain(cuda_device, P, W, V):
-    """Every width of CLUSTER_WIDTHS (1, 2 and 4 CTAs a cluster): far
+    """Every width of CLUSTER_WIDTHS (1, 2, 4 and 8 CTAs a cluster): far
     predecessors beyond the ring, problems over the pin budget (the
     backing store), a predecessor at and past its vertex, nv far below V
     and nv = 0, and problems within the ring."""
@@ -265,7 +336,8 @@ def test_poa_local_cluster_kernel_matches_plain(cuda_device, P, W, V):
     assert (n_backing[:6] > 0).any() and (n_backing[6:] == 0).all()
 
 
-@pytest.mark.parametrize("W,boundary", [(4096, 2048), (8192, 2048), (8192, 4096), (8192, 6144)])
+@pytest.mark.parametrize("W,boundary", [(4096, 2048), (8192, 2048), (8192, 4096), (8192, 6144),
+                                        (16384, 8192), (16384, 14336)])
 def test_poa_local_cluster_halo_over_a_far_edge(cuda_device, W, boundary):
     """The best match run takes a far edge where a CTA's columns start:
     the left column comes from the pinned halo (problem 1) and from the
@@ -276,6 +348,23 @@ def test_poa_local_cluster_halo_over_a_far_edge(cuda_device, W, boundary):
     assert n_backing.tolist() == [1, 0]
     best = PD.poa_local_plain(*(torch.from_numpy(a) for a in arrs))[0]
     assert float(best.min()) >= 2 * (boundary - 1)
+
+
+def test_poa_local_cluster_int16_extreme(cuda_device):
+    """H at the top of K9's int16 range: a chain of 16,384 vertices and a
+    query of 16,383 bases that matches it, one run of 16,383 matches, so
+    H reaches 2 x 16,383 = 32,766 at W 16,384.  Equal to the twin."""
+    rng = np.random.default_rng(8)
+    V, L = 16384, 16383
+    seq = rng.integers(0, 4, V).astype(np.int8)
+    vpred = np.full((1, V, 2), -1, dtype=np.int32)
+    vpred[0, 1:, 0] = np.arange(V - 1)
+    arrs = (seq[None], vpred, np.array([V], np.int32), seq[None, :L].copy(),
+            np.array([L], np.int32))
+    _local_cluster_matches_plain(cuda_device, arrs)
+    best, _tape, tlen, qend, _nb = PD.poa_local_cluster(
+        *(torch.from_numpy(a).to(cuda_device) for a in arrs))
+    assert float(best[0]) == 2 * L == 32766 and int(tlen[0]) == L and int(qend[0]) == L
 
 
 def test_poa_local_cluster_flags_too_few_backing_rows(cuda_device):

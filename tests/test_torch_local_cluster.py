@@ -1,13 +1,16 @@
-"""Port vs JAX package: the local gapless POA at rows of 512-8,192
+"""Port vs JAX package: the local gapless POA at rows of 512-16,384
 columns as the cluster kernel (kernels/csrc/poa_local_cluster.cu), and
 the local route cut into launches under a byte budget; tolerance 0.
 
-  * ``poa_local``'s CPU route at W 512/1,024/2,048 x P 2/4/8 (the plain
-    twin the kernel is held to on the card) against JAX
-    ``poa_local_kernel``, on batches with far predecessors, more far
-    vertices than the kernel pins, a predecessor at and past its vertex,
-    nv far below V and nv = 0; ``poa_local`` routes each width to its
-    kernel;
+  * ``poa_local``'s CPU route at W 512/1,024/2,048 (V 64) and 16,384 (V
+    128) x P 2/4/8 (the plain twin the kernel is held to on the card)
+    against JAX ``poa_local_kernel``, on batches with far predecessors,
+    more far vertices than the kernel pins, a predecessor at and past its
+    vertex, nv far below V and nv = 0; ``poa_local`` routes each width to
+    its kernel, off-ladder widths padded on the right (at L 300 and 9,000
+    equal to the unpadded twin and to JAX);
+  * the largest H the device route can reach: a chain of 8,192 vertices
+    matched by its query gives 2 x 8,192 = 16,384, inside K9's int16;
   * a numpy model of the kernel's column split: each slice computes its
     row from its own columns of the ring, pins and backing rows and, for
     its first column, the halo the slice before it pushed (or the global
@@ -51,10 +54,10 @@ def _batch(P, W, V=64):
     return [np.concatenate(x) for x in zip(far, near)]
 
 
-@pytest.mark.parametrize("W", [512, 1024, 2048])
+@pytest.mark.parametrize("W", [512, 1024, 2048, 16384])
 @pytest.mark.parametrize("P", [2, 4, 8])
 def test_cluster_cpu_route_matches_jax(P, W):
-    arrs = _batch(P, W)
+    arrs = _batch(P, W, 128 if W == 16384 else 64)
     want = jax.device_get(JPD.poa_local_kernel(*(jnp.asarray(a) for a in arrs)))
     before = kernels.launch_counts()
     t = [torch.from_numpy(a) for a in arrs]
@@ -91,8 +94,54 @@ def test_each_width_takes_its_kernel():
             assert tape.shape == (2, W) and (tlen[1:] > 0).all()
     finally:
         PD.poa_local_warp, PD.poa_local_cluster, PD.poa_local_block = real
-    assert calls == ["K7", "K4", "K9", "K9", "K9", "K9", "K9", "K4"]
+    assert calls == ["K7", "K9", "K9", "K9", "K9", "K9", "K9", "K9"]  # 384 padded to 512
     assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("L", [300, 9000])
+def test_off_ladder_rows_run_padded(L):
+    """A local row of L + 1 columns off the ladder runs padded to 512 or
+    16,384 with code 4: the padded twin's best, tape over the first L + 1
+    columns, tlen and qend equal the unpadded twin's and JAX's."""
+    arrs = with_local_edge_cases(random_local_batch(500 + L, 6, 128, 4, L, far_frac=0.3))
+    t = [torch.from_numpy(a) for a in arrs]
+    W = L + 1
+    assert PD.local_route(W) == ("poa_local_cluster", 512 if L == 300 else 16384)
+    q_w = PD.pad_row(t[3], None, PD.local_route(W)[1])[0]
+    padded = PD.poa_local_plain(t[0], t[1], t[2], q_w, t[4])
+    want = PD.poa_local_plain(*t)
+    jax_want = jax.device_get(JPD.poa_local_kernel(*(jnp.asarray(a) for a in arrs)))
+    got = PD.poa_local(*t)
+    assert padded[1].shape[1] == PD.local_route(W)[1] and got[1].shape == want[1].shape
+    for name, p, g, w, j in zip(NAMES, padded, got, want, jax_want):
+        if name == "tape":
+            p = p[:, :W]
+        assert torch.equal(p, w) and torch.equal(g, w), name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j).astype(g.numpy().dtype),
+                                      err_msg=name)
+    assert (want[2].numpy()[1:3] > 0).all()
+
+
+def test_largest_h_on_the_device_route():
+    """The largest cell a device-route problem can hold: a chain of 8,192
+    vertices (the route's vertex cap) and a query of the same 8,192 bases
+    in a row of 16,384 columns, one run of 8,192 matches, H = 16,384 =
+    2 min(nv, nq), half of K9's int16 range; the walk is the whole
+    chain."""
+    rng = np.random.default_rng(6)
+    V, L = 8192, 16383
+    seq = rng.integers(0, 4, V).astype(np.int8)
+    vpred = np.full((1, V, 2), -1, dtype=np.int32)
+    vpred[0, 1:, 0] = np.arange(V - 1)
+    q = np.full((1, L), 4, dtype=np.int8)
+    q[0, :V] = seq
+    t = [torch.from_numpy(a) for a in (seq[None], vpred, np.array([V], np.int32), q,
+                                        np.array([V], np.int32))]
+    best, tape, tlen, qend = PD.poa_local(*t)
+    assert float(best[0]) == 2 * V == 16384 <= np.iinfo(np.int16).max
+    assert int(tlen[0]) == V and int(qend[0]) == V
+    _ops, vids = PD.unpack_tape(tape[0, :V].numpy())
+    np.testing.assert_array_equal(vids, np.arange(V - 1, -1, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -280,12 +329,13 @@ def test_default_budget_takes_the_long_read_bucket_whole():
     """The long reads' largest rspoa bucket (64 problems of V 2,048 x W
     2,048, no backing row) fits one launch, as do 8,192 main-path
     problems (V 256 x W 128) and the W 16,384 route's widest bucket
-    by some problems."""
+    by some problems (its cell plane, 128 MiB a problem, and no H plane
+    on the cluster route)."""
     per = PD.local_problem_bytes(2048, 2048, 2, np.zeros(64))
     assert per.sum() < PD._LOCAL_BUDGET and per[0] < 5 << 20
     assert PD.local_problem_bytes(256, 128, 2, np.zeros(8192)).sum() < PD._LOCAL_BUDGET
     wide = PD.local_problem_bytes(8192, 16384, 2, np.zeros(1))[0]
-    assert wide > 600 << 20 and PD._LOCAL_BUDGET // wide >= 8
+    assert 128 << 20 < wide < 129 << 20 and PD._LOCAL_BUDGET // wide >= 8
     back = PD.local_problem_bytes(2048, 2048, 2, np.array([0, 10]))
     assert back[1] - back[0] == 10 * 2048 * 2
 
@@ -314,7 +364,10 @@ def test_kernel_source_sizes_match_the_wrapper():
     assert sizes["RING"] == PD.LOCAL_RING and sizes["PINS"] == PD.LOCAL_PINS
     assert sizes["SLOTS"] == SLOTS >= 2 * sizes["RING"]
     assert "constexpr int MAX_THREADS = SLICE / C;" in text
-    assert PD.CLUSTER_WIDTHS[-1] == sizes["SLICE"] * sizes["MAX_CTAS"]
+    # the widths the source's cta_cols takes: min(SLICE, W) columns a CTA,
+    # a power of two of CTAs up to MAX_CTAS
+    assert PD.CLUSTER_WIDTHS[-1] == sizes["SLICE"] * sizes["MAX_CTAS"] == 16384
+    assert all(W // min(W, sizes["SLICE"]) in (1, 2, 4, 8) for W in PD.CLUSTER_WIDTHS)
     assert sizes["SLICE"] == 2048 and min(PD.CLUSTER_WIDTHS) % (32 * sizes["C"]) == 0
     assert "poa_local_cluster.cu" in kernels.SOURCES and "poa_local_cluster" in kernels.LAUNCHES
 

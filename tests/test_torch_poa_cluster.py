@@ -4,17 +4,22 @@ tolerance 0.
 
   * ``poa_dp_tb_cluster``'s CPU route (the plain pair the kernel is held
     to on the card) against JAX ``poa_dp_xla`` + ``traceback_batch`` at
-    W 512/1,024/2,048 x P 2/4/8, on batches with far predecessors
-    (``far_frac`` 0.3), more far vertices than the kernel pins, a
-    predecessor at and one past its vertex, nv = 4 and nv = 0;
+    W 512/1,024/2,048 (V 64) and 16,384 (V 128) x P 2/4/8, on batches
+    with far predecessors (``far_frac`` 0.3), more far vertices than the
+    kernel pins, a predecessor at and one past its vertex, nv = 4 and
+    nv = 0;
   * a numpy model of the kernel's column split: each slice computes its
     row from its own columns, the H it derives for the column left of its
     first and the earlier slices' records only, and equals
-    ``poa_dp_plain`` bit for bit at 1/2/4/8 slices, on random batches and
-    on a chain whose match run ends at a slice boundary and whose long
-    insertion crosses several;
-  * ``dp_and_traceback`` routes each width to its kernel, and CPU tensors
-    launch none;
+    ``poa_dp_plain`` bit for bit at 1/2/4/8 slices of W 128 and at 16
+    slices of 1,024 columns (W 16,384, the kernel's CTAs there), on
+    random batches and on a chain whose match run ends at a slice
+    boundary and whose long insertion crosses several;
+  * ``dp_and_traceback`` routes each width to its kernel, off-ladder
+    widths padded on the right, and CPU tensors launch none; every width
+    from 1 to 16,384 maps to K6 or K8 (and K7 or K9 for the local POA),
+    never to K2, K3 or K4; the padded plain twins equal the unpadded ones
+    and JAX ``poa_global_kernel`` at L 300 and 9,000;
   * the kernel source's ring, pin and slice sizes are the wrapper's.
 """
 
@@ -46,10 +51,10 @@ def _batch(P, W, V=64):
     return [np.concatenate(x) for x in zip(far, near)]
 
 
-@pytest.mark.parametrize("W", [512, 1024, 2048])
+@pytest.mark.parametrize("W", [512, 1024, 2048, 16384])
 @pytest.mark.parametrize("P", [2, 4, 8])
 def test_cluster_cpu_route_matches_jax(P, W):
-    arrs = _batch(P, W)
+    arrs = _batch(P, W, 128 if W == 16384 else 64)
     vcodes, vpred, is_sink, nv, q, nq = arrs
     init_row = PD.make_init_row(W - 1)
     js, jk, jtb = jax.device_get(JPD.poa_dp_xla(
@@ -196,16 +201,23 @@ def _split_model(arrs, init_row, n_slices):
     return score, (sink_scores == score[:, None]).argmax(axis=1).astype(np.int32), tbits
 
 
-def _chain_batch(W, gap_at, gap_len):
-    """One linear graph; the query matches it up to column ``gap_at``
-    (the run's last column), then inserts ``gap_len`` bases, then matches
-    again; plus a few random problems."""
+def _chain_batch(W, gap_at, gap_len, V=96, B=3):
+    """One linear graph of V vertices; the query matches it up to column
+    ``gap_at`` (the run's last column), then inserts ``gap_len`` bases
+    (each unlike the graph's base it would otherwise meet, the last unlike
+    the base before the gap, so the gap cannot slide), then matches the
+    rest of the graph (or as much as fits the row); plus B - 1 random
+    problems."""
     rng = np.random.default_rng(W + gap_at)
-    V, L = 96, W - 1
-    seq = rng.integers(0, 4, V).astype(np.int8)
-    ins = (seq[gap_at : gap_at + gap_len] + 1 + rng.integers(0, 3, gap_len)) % 4
-    qry = np.concatenate([seq[:gap_at], ins, seq[gap_at : L - gap_len]])[:L].astype(np.int8)
-    arrs = [np.array(a, copy=True) for a in random_poa_batch(W + gap_at, 3, V, 2, L)]
+    L = W - 1
+    ext = rng.integers(0, 4, max(V, gap_at + gap_len)).astype(np.int8)
+    seq = ext[:V]
+    ins = (ext[gap_at : gap_at + gap_len] + 1 + rng.integers(0, 3, gap_len)) % 4
+    if ins[-1] == seq[gap_at - 1]:
+        ins[-1] = (ins[-1] + 1) % 4 if (ins[-1] + 1) % 4 != ext[gap_at + gap_len - 1] \
+            else (ins[-1] + 2) % 4
+    qry = np.concatenate([seq[:gap_at], ins, seq[gap_at:]])[:L].astype(np.int8)
+    arrs = [np.array(a, copy=True) for a in random_poa_batch(W + gap_at, B, V, 2, L)]
     vcodes, vpred, is_sink, nv, q, nq = arrs
     vcodes[0] = seq
     vpred[0] = -1
@@ -213,8 +225,9 @@ def _chain_batch(W, gap_at, gap_len):
     is_sink[0] = 0
     is_sink[0, V - 1] = 1
     nv[0] = V
-    q[0] = qry
-    nq[0] = L
+    q[0] = 4
+    q[0, : len(qry)] = qry
+    nq[0] = len(qry)
     return arrs
 
 
@@ -240,6 +253,29 @@ def test_column_split_model_matches_plain(n_slices):
     assert "".join("MID"[o] for o in ops[15:55]) == "I" * 40
 
 
+def test_column_split_model_16_slices_of_1024():
+    """W 16,384 as the kernel cuts it there: 16 slices of 1,024 columns.
+    A random batch, and a chain whose match run ends at column 1,023 (the
+    last of the first slice) and whose insertion of 2,100 bases crosses
+    the boundaries at 1,024, 2,048 and 3,072."""
+    W, n_slices = 16384, 16
+    cases = [random_poa_batch(916, 2, 40, 4, W - 1, far_frac=0.3),
+             _chain_batch(W, 1023, 2100, V=1100, B=1)]
+    for arrs in cases:
+        init_row = PD.make_init_row(W - 1)
+        score, sink, tbits = _split_model(arrs, init_row, n_slices)
+        t = [torch.from_numpy(a) for a in arrs]
+        ws, wk, wtb = PD.poa_dp_plain(*t, torch.from_numpy(init_row))
+        assert np.array_equal(score.view(np.int32), ws.numpy().view(np.int32))
+        np.testing.assert_array_equal(sink, wk.numpy())
+        for b in range(len(arrs[3])):
+            np.testing.assert_array_equal(tbits[b, : arrs[3][b]], wtb[b, : arrs[3][b]].numpy())
+    tape, tlen = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
+    ops, vids = PD.unpack_tape(tape[0, : tlen[0]].numpy()[::-1])
+    walk = "".join("MID"[o] for o in ops)
+    assert walk == "M" * 1023 + "I" * 2100 + "M" * 77
+
+
 # ---------------------------------------------------------------------------
 # routing and the source's sizes
 
@@ -261,20 +297,101 @@ def test_each_width_takes_its_kernel():
             assert tape.shape == (2, 24 + W + 1) and (tlen > 0).all()
     finally:
         PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp = real
-    assert calls == ["K6", "K2", "K8", "K8", "K8"]
+    assert calls == ["K6", "K8", "K8", "K8", "K8"]  # 384 runs padded to 512
     assert kernels.launch_counts() == before
+
+
+def test_every_width_routes_to_a_redesigned_kernel():
+    """Every row width up to 16,384, off the ladder too, runs on K6 or K8
+    (global) and K7 or K9 (local) at the narrowest width they take that
+    holds it; K2, K3 and K4 are no route's, and wider rows are refused."""
+    assert PD.ROUTE_WIDTHS == (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+    for W in range(1, 16385):
+        kernel, w = PD.global_route(W)
+        local, lw = PD.local_route(W)
+        assert w == lw == min(x for x in PD.ROUTE_WIDTHS if x >= W)
+        assert kernel == ("poa_dp_tb" if w <= 256 else "poa_dp_tb_cluster")
+        assert local == ("poa_local_warp" if w <= 256 else "poa_local_cluster")
+    assert PD.ROUTE_WIDTHS[:4] == PD.TB_WIDTHS == PD.LOCAL_WARP_WIDTHS
+    assert PD.ROUTE_WIDTHS[4:] == PD.CLUSTER_WIDTHS
+    for route in (PD.global_route, PD.local_route):
+        with pytest.raises(ValueError):
+            route(16385)
+    calls = []
+    names = ("poa_dp", "poa_traceback", "poa_local_block", "poa_dp_tb", "poa_dp_tb_cluster",
+             "poa_local_warp", "poa_local_cluster")
+    real = {n: getattr(PD, n) for n in names}
+    try:
+        for n, fn in real.items():
+            setattr(PD, n, (lambda n, fn: lambda *a, **k: calls.append(n) or fn(*a, **k))(n, fn))
+        for W in (20, 100, 300, 640, 1500, 3000, 9000):
+            arrs = [torch.from_numpy(a) for a in random_poa_batch(W, 2, 16, 2, W - 1)]
+            init = torch.from_numpy(PD.make_init_row(W - 1))
+            _s, tape, _tl = PD.dp_and_traceback(*arrs, init)
+            local = PD.poa_local(*(arrs[i] for i in (0, 1, 3, 4, 5)))
+            assert tape.shape == (2, 16 + W + 1) and local[1].shape == (2, W)
+    finally:
+        for n, fn in real.items():
+            setattr(PD, n, fn)
+    assert not {"poa_dp", "poa_traceback", "poa_local_block"} & set(calls)
+    assert calls == ["poa_dp_tb", "poa_local_warp"] * 2 + [
+        "poa_dp_tb_cluster", "poa_local_cluster"] * 5
+
+
+@pytest.mark.parametrize("L", [300, 9000])
+def test_off_ladder_rows_run_padded(L):
+    """A row of L + 1 columns off the ladder (l_w 384 or 9,088 under the
+    lane-padded contract) runs padded to 512 or 16,384: the padded plain
+    pair's score, best sink, tbits over the first columns and walk equal
+    the unpadded pair's, and the route equals JAX ``poa_global_kernel``
+    (its Pallas kernel in interpret mode at 384; its XLA scan at the
+    unpadded width at 9,088, which its VMEM budget picks)."""
+    V = 128
+    arrs = random_poa_batch(400 + L, 4, V, 2, L)
+    t = [torch.from_numpy(a) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(L))
+    W = L + 1
+    kernel, w = PD.global_route(W)
+    assert kernel == "poa_dp_tb_cluster" and w == (512 if L == 300 else 16384)
+    q_w, init_w = PD.pad_row(t[4], init, w)
+    ps, pk, ptb = PD.poa_dp_plain(*t[:4], q_w, t[5], init_w)
+    us, uk, utb = PD.poa_dp_plain(*t, init)
+    assert torch.equal(ps, us) and torch.equal(pk, uk)
+    for b, n in enumerate(arrs[3]):
+        assert torch.equal(ptb[b, :n, :W], utb[b, :n])
+    ptape, ptl = PD.poa_traceback_plain(ptb, t[1], pk, t[5])
+    utape, utl = PD.poa_traceback_plain(utb, t[1], uk, t[5])
+    assert torch.equal(ptl, utl) and torch.equal(ptape[:, : V + W + 1], utape)
+    vcodes, vpred, is_sink, nv, q, nq = arrs
+    js, jtape, jtl = jax.device_get(JPD.poa_global_kernel(
+        jnp.asarray(vcodes), jnp.asarray(vpred), jnp.asarray(is_sink != 0), jnp.asarray(nv),
+        jnp.asarray(q), jnp.asarray(nq), jnp.asarray(init.numpy()), use_pallas=True))
+    score, tape, tlen = PD.poa_global_kernel(*t, init)
+    l_w = ((L + 1 + 127) // 128) * 128
+    assert tape.shape == (4, V + l_w + 1)
+    np.testing.assert_array_equal(score.numpy(), js)
+    np.testing.assert_array_equal(tlen.numpy(), jtl)
+    for b in range(4):
+        np.testing.assert_array_equal(tape[b, : tlen[b]].numpy(),
+                                      jtape[b, : jtl[b]].astype(np.int32))
+    assert (tlen.numpy() > 0).all()
 
 
 def test_kernel_source_sizes_match_the_wrapper():
     src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "poa_dp_tb_cluster.cu")
     with open(src) as fh:
         text = fh.read()
-    sizes = {m.group(1): int(m.group(2))
-             for m in re.finditer(r"constexpr int (RING|PINS|SLICE|C|MAX_CTAS) = (\d+);", text)}
+    sizes = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (RING|PINS|SLICE|WIDE_SLICE|C|MAX_CTAS) = (\d+);", text)}
     assert sizes["RING"] == PD.TB_RING and sizes["PINS"] == PD.TB_PINS
-    assert sizes["SLICE"] == PD.CLUSTER_SLICE and sizes["SLICE"] % (32 * sizes["C"]) == 0
-    assert PD.CLUSTER_WIDTHS == tuple(PD.CLUSTER_SLICE * n for n in (1, 2, 4, 8, 16))
-    assert PD.CLUSTER_WIDTHS[-1] == sizes["SLICE"] * sizes["MAX_CTAS"]
+    slice_, wide, ctas = sizes["SLICE"], sizes["WIDE_SLICE"], sizes["MAX_CTAS"]
+    assert slice_ % (32 * sizes["C"]) == 0 and wide % (32 * sizes["C"]) == 0
+    # the source's cta_cols: SLICE up to SLICE x MAX_CTAS columns, WIDE_SLICE above
+    assert "return W <= SLICE * MAX_CTAS ? SLICE : WIDE_SLICE;" in text
+    assert PD.CLUSTER_SLICE == {W: slice_ if W <= slice_ * ctas else wide
+                                for W in PD.CLUSTER_WIDTHS}
+    assert PD.CLUSTER_WIDTHS == tuple(slice_ * n for n in (1, 2, 4, 8, 16)) + (wide * ctas,)
+    assert all(W // PD.CLUSTER_SLICE[W] in (1, 2, 4, 8, 16) for W in PD.CLUSTER_WIDTHS)
     assert "poa_dp_tb_cluster.cu" in kernels.SOURCES and "poa_dp_tb_cluster" in kernels.LAUNCHES
 
 

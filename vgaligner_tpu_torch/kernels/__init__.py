@@ -2,9 +2,11 @@
 
 The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
 traceback, the fused POA DP + traceback for rows up to 256 columns and,
-one thread-block cluster a problem, for rows of 512-8,192 columns,
+one thread-block cluster a problem, for rows of 512-16,384 columns,
 local POA, local POA one warp a problem for rows up to 256 columns, and
-one thread-block cluster a problem for rows of 512-8,192) are compiled
+one thread-block cluster a problem for rows of 512-16,384; the POA DP,
+POA traceback and local POA of one block a problem are the first ports,
+which no route launches) are compiled
 by ``nvcc`` for ``sm_90a``, one process per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded with ctypes.  The build runs

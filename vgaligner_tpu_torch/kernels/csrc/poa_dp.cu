@@ -3,10 +3,15 @@
 // Replaces: vgaligner_tpu/ops/poa_pallas2.py::_poa_dp_kernel2 (launched
 // by poa_dp_pallas2 from ops/poa_device.py::poa_global_kernel_packed)
 // and vgaligner_tpu/ops/poa_pallas.py::_poa_dp_kernel (poa_dp_pallas,
-// launched by poa_global_kernel; the port runs that contract on this
-// kernel at the lane-padded width), whose outputs equal
+// launched by poa_global_kernel), whose outputs equal
 // ops/poa_device.py::poa_dp_xla.  Bit-identical score, best_sink, and
 // tbits over every row v < nv[b].
+//
+// The first port.  No route of the wrapper launches it: rows of up to
+// 256 columns take poa_dp_tb.cu and rows of 512-16,384 poa_dp_tb_cluster.cu
+// (a width off that ladder, such as the lane-padded contract's 384, runs
+// padded to the next).  It stays in the library as what those kernels
+// are held and timed against.
 //
 // Per problem b: a base-level DAG of nv[b] vertices in topological
 // order, each with up to P predecessor slots (-1 = dead), aligned

@@ -1,5 +1,5 @@
 // Global partial-order alignment DP and its traceback in one kernel, for
-// sm_90a: rows of W = 512-8,192 columns (reads of 256-8,191 bp), one
+// sm_90a: rows of W = 512-16,384 columns (reads of 256-16,383 bp), one
 // thread-block cluster a problem.
 //
 // Replaces, at those widths: vgaligner_tpu/ops/poa_pallas2.py::
@@ -10,8 +10,9 @@
 // vgaligner_tpu/ops/poa_device.py::traceback_batch (:325).  Its outputs
 // are bit-identical to ops/poa_device.py::poa_dp_plain followed by
 // poa_traceback_plain: score, best_sink, tbits over rows v < nv[b], tape
-// and tlen.  Rows of up to 256 columns take poa_dp_tb.cu, rows of 16,384
-// poa_dp.cu and poa_traceback.cu.
+// and tlen.  Rows of up to 256 columns take poa_dp_tb.cu.  (poa_dp.cu and
+// poa_traceback.cu, the first ports, take any width up to 16,384; no route
+// of the wrapper reaches them.)
 //
 // The recurrence, the f32 operations and their order, the tie rules and
 // the 19 decision bits are poa_dp.cu's (see there); the row state plan
@@ -24,10 +25,15 @@
 // chain of dependent loads, so what the design attacks is each problem's
 // latency, and the SMs a chunk of few wide problems leaves idle:
 //
-//  * a cluster of N = W / SLICE CTAs a problem (1/2/4/8/16; 16 is a
-//    non-portable cluster size), CTA r owning columns [r*SLICE,
-//    (r+1)*SLICE); lane l of warp w owns C = 4 consecutive columns, so a
-//    global warp g = r*WARPS + w owns columns [128g, 128g + 128).  A
+//  * a cluster of N = W / S CTAs a problem, S columns a CTA: S = SLICE =
+//    512 at W 512-8,192 (N = 1/2/4/8/16), S = WIDE_SLICE = 1,024 at W
+//    16,384 (N = 16, which 512 columns a CTA could not reach: a cluster
+//    holds at most 16 CTAs, and 16 is already a non-portable size).  CTA
+//    r owns columns [r*S, (r+1)*S); lane l of warp w owns C = 4
+//    consecutive columns, so a global warp g = r*WARPS + w owns columns
+//    [128g, 128g + 128), with WARPS = S / 128 warps a CTA (4 or 8).  The
+//    per-thread code is the same at both slices; S is a template
+//    argument, so the 512-column instance is the code it always was.  A
 //    chunk of 32 problems at W 2,048 is 128 CTAs, where one block a
 //    problem gave 32;
 //  * each CTA keeps H/E1/E2 of its own columns for the ring and the pinned
@@ -71,8 +77,10 @@
 //    round trip a step; its warp writes the END tail.  No shared memory
 //    is read across CTAs after that barrier, so the other CTAs may exit.
 //
-// A CTA's state is 12 rows of 3 x 512 floats (72 KB) plus the halo, the
-// records and the far-vertex bitmap.
+// A CTA's state is 12 rows of 3 x S floats (72 KB at S 512, 144 KB at S
+// 1,024) plus the halo, the records (2 x 16 x WARPS float4s) and the
+// far-vertex bitmap (V / 8 bytes): 152,960 bytes at S 1,024 and V 8,192,
+// one CTA an SM, under the 227 KB a block may take.
 
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -91,11 +99,17 @@ constexpr int RING = 8;  // a power of two
 constexpr int PINS = 4;
 constexpr int NROWS = RING + PINS;
 constexpr int C = 4;                      // columns a lane
-constexpr int SLICE = 512;                // columns a CTA
-constexpr int WARPS = SLICE / (32 * C);   // warps a CTA
-constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_CTAS = 16;              // CTAs a cluster, at W = 8,192
-constexpr int MAX_WARPS = MAX_CTAS * WARPS;
+constexpr int SLICE = 512;                // columns a CTA at W 512-8,192
+constexpr int WIDE_SLICE = 1024;          // columns a CTA above, at W 16,384
+constexpr int MAX_CTAS = 16;              // CTAs a cluster, at W 8,192 and 16,384
+
+// the sizes that follow from S columns a CTA
+template <int S>
+struct Slice {
+  static constexpr int WARPS = S / (32 * C);  // warps a CTA
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MAX_WARPS = MAX_CTAS * WARPS;  // warps in the largest cluster
+};
 constexpr int OP_M = 0, OP_I = 1, OP_D = 2, OP_END = 3;
 constexpr int END_FILL = OP_END | (1 << 2);
 constexpr unsigned FULL = 0xffffffffu;
@@ -142,8 +156,8 @@ __device__ __forceinline__ void load_meta(const int* vp_b, const int8_t* vc_b,
   }
 }
 
-template <int P>
-__global__ void __launch_bounds__(THREADS)
+template <int P, int S>
+__global__ void __launch_bounds__(Slice<S>::THREADS)
     poa_dp_tb_cluster_kernel(const int8_t* __restrict__ vcodes, const int* __restrict__ vpred,
                              const uint8_t* __restrict__ is_sink, const int* __restrict__ nv,
                              const int8_t* __restrict__ q, const int* __restrict__ nq,
@@ -152,7 +166,9 @@ __global__ void __launch_bounds__(THREADS)
                              int* __restrict__ best_sink, int* __restrict__ tbits,
                              int* __restrict__ tape, int* __restrict__ tlen,
                              int* __restrict__ n_backing) {
-  constexpr int RS = 3 * SLICE;  // floats in a CTA's state row: H, E1, E2
+  constexpr int WARPS = Slice<S>::WARPS, THREADS = Slice<S>::THREADS;
+  constexpr int MAX_WARPS = Slice<S>::MAX_WARPS;
+  constexpr int RS = 3 * S;  // floats in a CTA's state row: H, E1, E2
   extern __shared__ float4 smem_v4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int N = (int)cluster.num_blocks();
@@ -305,8 +321,8 @@ __global__ void __launch_bounds__(THREADS)
         if (srow >= 0) {
           const float* s = rows + srow * RS + t * C;
           load_cols(s, h);
-          load_cols(s + SLICE, e1);
-          load_cols(s + 2 * SLICE, e2);
+          load_cols(s + S, e1);
+          load_cols(s + 2 * S, e2);
           if (lane == 0) hleft = halo[srow];
         } else {
           const float* gr = bk_b + (size_t)pp * RSG;
@@ -472,8 +488,8 @@ __global__ void __launch_bounds__(THREADS)
     {
       float* s = rows + (v & (RING - 1)) * RS + t * C;
       store_cols(s, hrow);
-      store_cols(s + SLICE, best1);
-      store_cols(s + 2 * SLICE, best2);
+      store_cols(s + S, best1);
+      store_cols(s + 2 * S, best2);
       if (lane == 0) halo[v & (RING - 1)] = hprev;
     }
 #pragma unroll
@@ -481,8 +497,8 @@ __global__ void __launch_bounds__(THREADS)
       if (pin[k] == v) {
         float* s = rows + (RING + k) * RS + t * C;
         store_cols(s, hrow);
-        store_cols(s + SLICE, best1);
-        store_cols(s + 2 * SLICE, best2);
+        store_cols(s + S, best1);
+        store_cols(s + 2 * S, best2);
         if (lane == 0) halo[RING + k] = hprev;
       }
     }
@@ -586,31 +602,36 @@ namespace {
 
 int bitmap_words(int V) { return (((V + 31) >> 5) + 3) & ~3; }
 
+// columns a CTA at row width W
+int cta_cols(int W) { return W <= SLICE * MAX_CTAS ? SLICE : WIDE_SLICE; }
+
+template <int S>
 size_t smem_bytes(int V) {
-  return 2 * MAX_WARPS * sizeof(float4) +
-         ((size_t)NROWS * 3 * SLICE + WARPS * NROWS + bitmap_words(V)) * sizeof(float);
+  return 2 * Slice<S>::MAX_WARPS * sizeof(float4) +
+         ((size_t)NROWS * 3 * S + Slice<S>::WARPS * NROWS + bitmap_words(V)) * sizeof(float);
 }
 
 // CTAs a cluster at row width W, or 0 where W is not one the kernel takes
 int cluster_ctas(int W) {
-  const int n = W / SLICE;
-  return (W % SLICE == 0 && (n == 1 || n == 2 || n == 4 || n == 8 || n == 16)) ? n : 0;
+  const int s = cta_cols(W);
+  const int n = W / s;
+  return (W % s == 0 && (n == 1 || n == 2 || n == 4 || n == 8 || n == 16)) ? n : 0;
 }
 
-template <int P>
+template <int P, int S>
 cudaError_t configure(int B, int V, int W, cudaStream_t st, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr) {
   const int N = cluster_ctas(W);
-  if (N == 0 || V <= 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(V);
-  cudaError_t e = cudaFuncSetAttribute(poa_dp_tb_cluster_kernel<P>,
+  if (N == 0 || cta_cols(W) != S || V <= 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<S>(V);
+  cudaError_t e = cudaFuncSetAttribute(poa_dp_tb_cluster_kernel<P, S>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && N > 8)
-    e = cudaFuncSetAttribute(poa_dp_tb_cluster_kernel<P>,
+    e = cudaFuncSetAttribute(poa_dp_tb_cluster_kernel<P, S>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)(B * N), 1, 1);
-  cfg->blockDim = dim3(THREADS, 1, 1);
+  cfg->blockDim = dim3(Slice<S>::THREADS, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -622,34 +643,51 @@ cudaError_t configure(int B, int V, int W, cudaStream_t st, cudaLaunchConfig_t* 
   return e;
 }
 
-template <int P>
-cudaError_t launch(int B, int V, int L, cudaStream_t st, const int8_t* vcodes, const int* vpred,
-                   const uint8_t* is_sink, const int* nv, const int8_t* q, const int* nq,
-                   const float* init_row, float* backing, float* score, int* best_sink,
-                   int* tbits, int* tape, int* tlen, int* n_backing) {
+template <int P, int S>
+cudaError_t launch_slice(int B, int V, int L, cudaStream_t st, const int8_t* vcodes,
+                         const int* vpred, const uint8_t* is_sink, const int* nv,
+                         const int8_t* q, const int* nq, const float* init_row, float* backing,
+                         float* score, int* best_sink, int* tbits, int* tape, int* tlen,
+                         int* n_backing) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<P>(B, V, L + 1, st, &cfg, attr);
+  cudaError_t e = configure<P, S>(B, V, L + 1, st, &cfg, attr);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, poa_dp_tb_cluster_kernel<P>, vcodes, vpred, is_sink, nv, q, nq,
-                         init_row, V, L, bitmap_words(V), backing, score, best_sink, tbits, tape,
-                         tlen, n_backing);
+  e = cudaLaunchKernelEx(&cfg, poa_dp_tb_cluster_kernel<P, S>, vcodes, vpred, is_sink, nv, q,
+                         nq, init_row, V, L, bitmap_words(V), backing, score, best_sink, tbits,
+                         tape, tlen, n_backing);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <int P>
-cudaError_t occupancy(int W, int V, int* out) {
+cudaError_t launch(int B, int V, int L, cudaStream_t st, const int8_t* vcodes, const int* vpred,
+                   const uint8_t* is_sink, const int* nv, const int8_t* q, const int* nq,
+                   const float* init_row, float* backing, float* score, int* best_sink,
+                   int* tbits, int* tape, int* tlen, int* n_backing) {
+  auto go = cta_cols(L + 1) == SLICE ? &launch_slice<P, SLICE> : &launch_slice<P, WIDE_SLICE>;
+  return go(B, V, L, st, vcodes, vpred, is_sink, nv, q, nq, init_row, backing, score, best_sink,
+            tbits, tape, tlen, n_backing);
+}
+
+template <int P, int S>
+cudaError_t occupancy_slice(int W, int V, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<P>(1, V, W, nullptr, &cfg, attr);
+  cudaError_t e = configure<P, S>(1, V, W, nullptr, &cfg, attr);
   if (e != cudaSuccess) return e;
   int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, poa_dp_tb_cluster_kernel<P>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, poa_dp_tb_cluster_kernel<P, S>, &cfg);
   out[0] = cluster_ctas(W);
   out[1] = clusters;
   out[2] = (int)cfg.dynamicSmemBytes;
   return e;
+}
+
+template <int P>
+cudaError_t occupancy(int W, int V, int* out) {
+  return cta_cols(W) == SLICE ? occupancy_slice<P, SLICE>(W, V, out)
+                              : occupancy_slice<P, WIDE_SLICE>(W, V, out);
 }
 
 }  // namespace

@@ -6,6 +6,11 @@
 // with no Pallas kernel.  Bit-identical best, tape[b, :tlen[b]], tlen
 // and qend.
 //
+// The first port.  No route of the wrapper launches it: rows of up to
+// 256 columns take poa_local_warp.cu and rows of 512-16,384
+// poa_local_cluster.cu (other widths padded to the next).  It stays in
+// the library as what those kernels are held and timed against.
+//
 // Per problem b: a base-level DAG of nv[b] vertices in topological
 // order with up to P predecessor slots (-1 = dead), against the query
 // q[b, :L] (padding code 4 always mismatches).  Row V of H is a virtual

@@ -1,5 +1,5 @@
 // Local gapless partial-order alignment (rspoa engine), DP + traceback,
-// for sm_90a: rows of W = 512-8,192 columns (reads of 256-8,191 bp), one
+// for sm_90a: rows of W = 512-16,384 columns (reads of 256-16,383 bp), one
 // thread-block cluster a problem.
 //
 // Replaces, at those widths: vgaligner_tpu/ops/poa_device.py::
@@ -7,9 +7,10 @@
 // vertices, then a scan for the traceback) with no Pallas kernel.  Its
 // outputs are bit-identical to ops/poa_device.py::poa_local_plain: best
 // [B] f32, tape [B, W] i32 (the END fill included), tlen and qend.  Rows
-// of up to 256 columns take poa_local_warp.cu, rows of 16,384
-// poa_local.cu, whose header states the recurrence; this kernel computes
-// the same one:
+// of up to 256 columns take poa_local_warp.cu.  poa_local.cu, the first
+// port, whose header states the recurrence, takes any width up to 16,384
+// but no route of the wrapper reaches it; this kernel computes the same
+// recurrence:
 //   cand_p[j] = H[pred_p][j-1] for a live slot, 0 for a dead one, 0 at j = 0;
 //   m_best = max(max_p cand_p, 0); slot = the first live slot at m_best
 //     when m_best > 0, else 15;
@@ -25,13 +26,17 @@
 // the SMs that one block a problem (poa_local.cu) leaves idle:
 //
 //  * a cluster of N = W / S CTAs a problem, S = min(SLICE, W) columns a
-//    CTA (N = 1, one CTA and no cluster barrier, up to W 2,048; 2 and 4
-//    at W 4,096 and 8,192), CTA r owning columns [r*S, (r+1)*S) and
+//    CTA (N = 1, one CTA and no cluster barrier, up to W 2,048; 2, 4 and
+//    8 at W 4,096, 8,192 and 16,384: a portable cluster size throughout),
+//    CTA r owning columns [r*S, (r+1)*S) and
 //    thread t of it the C = 4 columns from r*S + 4t; each problem runs its
 //    own nv[b] rows, not the batch maximum.  SLICE 2,048 was chosen by
 //    timing 512, 1,024 and 2,048 on the long reads' largest rspoa batch
 //    (vgaligner_tpu_torch/kernel_probe.py, PERF.md);
-//  * H lives in shared memory as int16 (0 <= H <= 2L <= 16,382, exact),
+//  * H lives in shared memory as int16, exact: a cell's value is 2 a match
+//    along a run of at most min(nv, L) matches, so 0 <= H <= 2 min(nv, L)
+//    <= 2 x 16,383 = 32,766 <= 32,767 at every width the kernel takes
+//    (16,384 at most at V 8,192, the device route's vertex cap),
 //    with poa_local_warp.cu's plan: a ring of SLOTS = 16 rows serving
 //    predecessors up to RING = 8 rows back, PINS = 4 pinned rows for the
 //    first far-referenced vertices, and past them a global int16 backing
@@ -67,7 +72,8 @@
 //    after that barrier.
 //
 // Shared memory a CTA: (SLOTS + PINS) rows of 2S bytes, the halo, the
-// far-vertex bitmap and its prefix counts: 82 KB at S 2,048 (V 2,048).
+// far-vertex bitmap and its prefix counts: 82 KB at S 2,048 (V 2,048),
+// 84,336 bytes at V 8,192, so two CTAs fit an SM.
 //
 // The backing store holds the rows the host counted for each problem; a
 // problem whose far vertices need more (the host and the kernel
@@ -92,7 +98,7 @@ constexpr int C = 4;           // columns a thread
 constexpr int SLICE = 2048;    // columns a CTA at most
 constexpr int MAX_THREADS = SLICE / C;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int MAX_CTAS = 4;    // at W 8,192
+constexpr int MAX_CTAS = 8;    // at W 16,384
 constexpr int OP_M = 0, OP_END = 3;
 constexpr int END_FILL = OP_END | (1 << 2);
 constexpr unsigned FULL = 0xffffffffu;

@@ -4,6 +4,9 @@
 // loop (an XLA while_loop of scans) with no Pallas kernel.  Bit-identical
 // tape[b, :tlen[b]] and tlen.
 //
+// The first port, paired with poa_dp.cu; no route launches it (the fused
+// kernels poa_dp_tb.cu and poa_dp_tb_cluster.cu walk in-kernel).
+//
 // Per problem b, a walk from (v, j) = (best_sink[b], nq[b]) in state H
 // through the H/E/F state machine until it reaches the virtual source
 // (v = -2) at column 0:

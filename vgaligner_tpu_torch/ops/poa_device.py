@@ -7,11 +7,13 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     ladder-padded chunk runs the POA DP and its traceback.  Rows of up to
     256 columns (reads up to 255 bp) take ``poa_dp_tb``, one CUDA kernel
     for both, one warp a problem (kernels/csrc/poa_dp_tb.cu); rows of
-    512-8,192 columns take ``poa_dp_tb_cluster``, one kernel for both,
+    512-16,384 columns take ``poa_dp_tb_cluster``, one kernel for both,
     one thread-block cluster a problem (kernels/csrc/poa_dp_tb_cluster.cu);
-    other widths take ``poa_dp`` (kernels/csrc/poa_dp.cu) and then
-    ``poa_traceback`` (kernels/csrc/poa_traceback.cu).  On the CPU every
-    route runs the plain twins ``poa_dp_plain`` and
+    a row of another width is padded on the right to the next of those
+    widths (``route_width``).  ``poa_dp`` (kernels/csrc/poa_dp.cu) and
+    ``poa_traceback`` (kernels/csrc/poa_traceback.cu), the first ports,
+    stay callable at any width up to 16,384, but no route launches them.
+    On the CPU every route runs the plain twins ``poa_dp_plain`` and
     ``poa_traceback_plain``.  Each chunk's tape comes back sliced to its
     longest walk and the native runtime decodes it into cigar/cs/node
     paths.  ``poa_global_kernel``
@@ -26,10 +28,12 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     ``poa_local`` on each and decodes each tape through the port's
     ``ops/poa.py::_finish_result``.  Rows of up to 256 columns take
     ``poa_local_warp``, one warp a problem
-    (kernels/csrc/poa_local_warp.cu); rows of 512-8,192 columns take
+    (kernels/csrc/poa_local_warp.cu); rows of 512-16,384 columns take
     ``poa_local_cluster``, one thread-block cluster a problem
-    (kernels/csrc/poa_local_cluster.cu); other widths (16,384) take
-    kernels/csrc/poa_local.cu; on the CPU, ``poa_local_plain``.
+    (kernels/csrc/poa_local_cluster.cu); other widths are padded on the
+    right as the global route's are.  ``poa_local_block``
+    (kernels/csrc/poa_local.cu), the first port, is launched by no route;
+    on the CPU, ``poa_local_plain``.
 
 Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 -4, gaps 4+2g and 24+g).  Decision bits per cell (int32):
@@ -313,7 +317,9 @@ def _check_dp_inputs(name, vcodes, vpred, is_sink, nv, q, nq, init_row):
 def poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row):
     """POA DP: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors.  Same arguments and outputs as ``poa_dp_plain`` (tbits rows
-    at or past nv are unspecified)."""
+    at or past nv are unspecified).  No route of ``dp_and_traceback``
+    launches it; it is the first port, kept as what the fused kernels
+    are timed against."""
     if vcodes.device.type == "cpu":
         return poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
     B, V, P, L = _check_dp_inputs("poa_dp", vcodes, vpred, is_sink, nv, q, nq, init_row)
@@ -396,7 +402,8 @@ def poa_traceback_plain(tbits, vpred, best_sink, nq):
 
 def poa_traceback(tbits, vpred, best_sink, nq):
     """Traceback: the CUDA kernel for CUDA tensors, the plain twin for
-    CPU tensors.  Same arguments and outputs as ``poa_traceback_plain``."""
+    CPU tensors.  Same arguments and outputs as ``poa_traceback_plain``.
+    No route launches it (see ``poa_dp``)."""
     if tbits.device.type == "cpu":
         return poa_traceback_plain(tbits, vpred, best_sink, nq)
     B, V, C = tbits.shape
@@ -507,29 +514,39 @@ def poa_dp_tb_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
 
 # ---------------------------------------------------------------------------
 # POA DP and traceback in one kernel, one thread-block cluster a problem
-# (rows of 512-8,192 columns)
+# (rows of 512-16,384 columns)
 
-CLUSTER_SLICE = 512  # poa_dp_tb_cluster.cu's columns a CTA
-CLUSTER_WIDTHS = (512, 1024, 2048, 4096, 8192)  # W = 512 N, N = 1/2/4/8/16 CTAs a cluster
+# poa_dp_tb_cluster.cu's columns a CTA by row width: 512 up to W 8,192
+# (1-16 CTAs a cluster), 1,024 at W 16,384 (16 CTAs)
+CLUSTER_SLICE = {512: 512, 1024: 512, 2048: 512, 4096: 512, 8192: 512, 16384: 1024}
+# the row widths of both cluster kernels (poa_local_cluster.cu: 2,048
+# columns a CTA at most, 1-8 CTAs a cluster)
+CLUSTER_WIDTHS = tuple(CLUSTER_SLICE)
 
 
 def poa_dp_tb_cluster(vcodes, vpred, is_sink, nv, q, nq, init_row):
-    """POA DP and traceback: one CUDA kernel, one thread-block cluster a
-    problem, for CUDA tensors (rows of W = L + 1 in CLUSTER_WIDTHS), the
-    plain pair for CPU tensors.  Same arguments and outputs as
-    ``poa_dp_tb`` (n_backing at its ring and pins).  Raises where the card
-    cannot keep one cluster of this shape resident."""
+    """POA DP and traceback: one CUDA kernel, one thread-block cluster of
+    W / CLUSTER_SLICE[W] CTAs a problem, for CUDA tensors (rows of W = L +
+    1 in CLUSTER_WIDTHS), the plain pair for CPU tensors.  Same arguments
+    and outputs as ``poa_dp_tb`` (n_backing at its ring and pins).  Raises
+    where the card cannot keep one cluster of this shape resident.
+
+    Device memory at the widest shape: the backing store [B, V, 3W] f32,
+    allocated whole and never zeroed, is 1.61 GB a problem at V 8,192 x
+    W 16,384 and tbits 0.54 GB, so ``_b_chunk_for``'s chunk of 8 such
+    problems takes 17.2 GB."""
     if vcodes.device.type == "cpu":
         return _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
     B, V, P, L = _check_dp_inputs("poa_dp_tb_cluster", vcodes, vpred, is_sink, nv, q, nq,
                                   init_row)
     W = L + 1
-    if W not in CLUSTER_WIDTHS:
+    if W not in CLUSTER_SLICE:
         raise ValueError(f"poa_dp_tb_cluster: unsupported row width W={W} {CLUSTER_WIDTHS}")
     ctas, clusters, smem = poa_dp_tb_cluster_occupancy(P, W, V)
     if clusters <= 0:
-        raise RuntimeError(f"poa_dp_tb_cluster: no cluster of {ctas} CTAs with {smem} B of "
-                           f"shared memory each can be resident (P={P}, W={W}, V={V})")
+        raise RuntimeError(f"poa_dp_tb_cluster: no cluster of {ctas} CTAs of "
+                           f"{CLUSTER_SLICE[W]} columns with {smem} B of shared memory each "
+                           f"can be resident (P={P}, W={W}, V={V})")
     dev = vcodes.device
     # never zeroed; only the rows of n_backing are written and read
     backing = torch.empty((B, V, 3 * W), dtype=torch.float32, device=dev)
@@ -563,19 +580,62 @@ def poa_dp_tb_cluster_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
     return out[0], out[1], out[2]
 
 
+ROUTE_WIDTHS = TB_WIDTHS + CLUSTER_WIDTHS  # the row widths the routes launch, 32-16,384
+
+
+def route_width(W: int) -> int:
+    """The row width a route runs a row of W columns at: the narrowest of
+    ROUTE_WIDTHS that holds it.  ValueError above 16,384."""
+    for w in ROUTE_WIDTHS:
+        if w >= W:
+            return w
+    raise ValueError(f"row width W={W} exceeds {ROUTE_WIDTHS[-1]}")
+
+
+def global_route(W: int) -> Tuple[str, int]:
+    """(kernel, row width) ``dp_and_traceback`` launches for rows of W
+    columns on the card: ``poa_dp_tb`` or ``poa_dp_tb_cluster`` at
+    ``route_width(W)``."""
+    w = route_width(W)
+    return ("poa_dp_tb" if w in TB_WIDTHS else "poa_dp_tb_cluster"), w
+
+
+def pad_row(q, init_row, W: int):
+    """(q [B, W-1], init_row [W]): the query padded on the right with code
+    4 and the virtual-source row with NEGF, to a row of W columns.
+
+    Exact for both DPs: no cell reads a column to its right.  In the
+    global DP, M at column j reads j - 1, E reads j, and F is a prefix
+    over columns < j, so the first columns' H, E, F and decision bits,
+    the best sink at column nq and the walk from it (which only moves
+    left) are those of the narrower row.  In the local DP a padding cell
+    is at most max(H[pred][j-1] - 4, 0) (code 4 mismatches), strictly
+    below a cell scanned in an earlier row or 0, so it is never the
+    first best; the best cell, its walk and qend do not change."""
+    B, L = q.shape
+    q_w = torch.full((B, W - 1), 4, dtype=q.dtype, device=q.device)
+    q_w[:, :L] = q
+    if init_row is None:
+        return q_w, None
+    init_w = torch.full((W,), float(NEGF), dtype=init_row.dtype, device=init_row.device)
+    init_w[: L + 1] = init_row
+    return q_w, init_w
+
+
 def dp_and_traceback(vcodes, vpred, is_sink, nv, q, nq, init_row):
-    """(score, tape, tlen) of one batch: ``poa_dp_tb`` for rows of W in
-    TB_WIDTHS, ``poa_dp_tb_cluster`` for W in CLUSTER_WIDTHS, else
-    ``poa_dp`` then ``poa_traceback``."""
-    W = q.shape[1] + 1
-    if W in TB_WIDTHS or W in CLUSTER_WIDTHS:
-        fused = poa_dp_tb if W in TB_WIDTHS else poa_dp_tb_cluster
-        score, _sink, _tbits, tape, tlen, _nb = fused(vcodes, vpred, is_sink, nv, q, nq,
-                                                      init_row)
-        return score, tape, tlen
-    score, best_sink, tbits = poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row)
-    tape, tlen = poa_traceback(tbits, vpred, best_sink, nq)
-    return score, tape, tlen
+    """(score, tape [B, V+W+1], tlen) of one batch, W = L + 1: ``poa_dp_tb``
+    for rows of W in TB_WIDTHS, ``poa_dp_tb_cluster`` for W in
+    CLUSTER_WIDTHS; a row of another width up to 16,384 is padded on the
+    right to the next of those widths (``pad_row``, exact) and its tape
+    cut back to V + W + 1 entries (the walk takes at most V + nq + 1
+    steps).  ``poa_dp`` and ``poa_traceback`` are launched at no width."""
+    V, W = vcodes.shape[1], q.shape[1] + 1
+    kernel, w = global_route(W)
+    if w != W:
+        q, init_row = pad_row(q, init_row, w)
+    fused = poa_dp_tb if kernel == "poa_dp_tb" else poa_dp_tb_cluster
+    score, _sink, _tbits, tape, tlen, _nb = fused(vcodes, vpred, is_sink, nv, q, nq, init_row)
+    return score, tape[:, : V + W + 1], tlen
 
 
 def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
@@ -588,7 +648,8 @@ def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
     Same arguments as ``poa_dp`` with q [B, L] and init_row [L+1] ->
     (score [B] f32, tape [B, V+l_w+1] int32, tlen [B] int32).  That DP is
     ``poa_dp``'s at this width, so it takes the route ``dp_and_traceback``
-    gives that width."""
+    gives that width (an l_w off the power-of-two ladder, such as 384,
+    runs padded to the next width a fused kernel takes)."""
     q_w, init_w = lane_pad(q, init_row)
     return dp_and_traceback(vcodes, vpred, is_sink, nv, q_w, nq, init_w)
 
@@ -596,13 +657,7 @@ def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
 def lane_pad(q, init_row):
     """(q [B, l_w-1] padded with code 4, init_row [l_w] padded with NEGF),
     l_w = ceil((L+1)/128)*128: the row width of ``poa_global_kernel``."""
-    B, L = q.shape
-    l_w = ((L + 1 + 127) // 128) * 128
-    q_w = torch.full((B, l_w - 1), 4, dtype=q.dtype, device=q.device)
-    q_w[:, :L] = q
-    init_w = torch.full((l_w,), float(NEGF), dtype=torch.float32, device=q.device)
-    init_w[: L + 1] = init_row
-    return q_w, init_w
+    return pad_row(q, init_row, ((q.shape[1] + 1 + 127) // 128) * 128)
 
 
 # ---------------------------------------------------------------------------
@@ -892,27 +947,41 @@ def _check_local_inputs(name, vcodes, vpred, nv, q):
     return B, V, P, L
 
 
+def local_route(W: int) -> Tuple[str, int]:
+    """(kernel, row width) ``poa_local`` launches for rows of W columns on
+    the card: ``poa_local_warp`` or ``poa_local_cluster`` at
+    ``route_width(W)``."""
+    w = route_width(W)
+    return ("poa_local_warp" if w in LOCAL_WARP_WIDTHS else "poa_local_cluster"), w
+
+
 def poa_local(vcodes, vpred, nv, q, nq, back_rows=None):
     """Local gapless DP + traceback, by row width W = L + 1:
     ``poa_local_warp`` for W in LOCAL_WARP_WIDTHS (up to 256 columns),
-    ``poa_local_cluster`` for W in CLUSTER_WIDTHS (512-8,192; it takes
-    ``back_rows``), ``poa_local_block`` for other widths; each runs the
-    plain twin for CPU tensors.  Same arguments and outputs as
-    ``poa_local_plain``."""
+    ``poa_local_cluster`` for W in CLUSTER_WIDTHS (512-16,384; it takes
+    ``back_rows``); a row of another width up to 16,384 is padded on the
+    right to the next of those widths (``pad_row``, exact) and its tape
+    cut back to W entries.  Each runs the plain twin for CPU tensors, and
+    ``poa_local_block`` is launched at no width.  Same arguments and
+    outputs as ``poa_local_plain``."""
     W = q.shape[1] + 1
-    if W in LOCAL_WARP_WIDTHS:
-        return poa_local_warp(vcodes, vpred, nv, q, nq)[:4]
-    if W in CLUSTER_WIDTHS:
-        return poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows)[:4]
-    return poa_local_block(vcodes, vpred, nv, q, nq)
+    kernel, w = local_route(W)
+    if w != W:
+        q = pad_row(q, None, w)[0]
+    if kernel == "poa_local_warp":
+        best, tape, tlen, qend = poa_local_warp(vcodes, vpred, nv, q, nq)[:4]
+    else:
+        best, tape, tlen, qend = poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows)[:4]
+    return best, tape[:, :W], tlen, qend
 
 
 def poa_local_block(vcodes, vpred, nv, q, nq):
     """Local gapless DP + traceback, one block a problem: the CUDA kernel
     (kernels/csrc/poa_local.cu) for CUDA tensors at any width
     ``kernels.check_row_width`` takes, the plain twin for CPU tensors.
-    Same arguments and outputs as ``poa_local_plain``; ``poa_local``
-    sends it the rows of neither LOCAL_WARP_WIDTHS nor CLUSTER_WIDTHS."""
+    Same arguments and outputs as ``poa_local_plain``.  No route of
+    ``poa_local`` launches it; it is the first port, kept as what the
+    cluster kernel is timed against."""
     if vcodes.device.type == "cpu":
         return poa_local_plain(vcodes, vpred, nv, q, nq)
     B, V, P, L = _check_local_inputs("poa_local", vcodes, vpred, nv, q)
@@ -1095,17 +1164,16 @@ _LOCAL_BUDGET = 6 << 30
 
 def local_problem_bytes(V: int, W: int, P: int, back_rows: np.ndarray) -> np.ndarray:
     """Device bytes one local POA problem of a (V, W) batch takes on its
-    route, per problem of ``back_rows`` (its host-counted backing rows):
-    inputs, the u8 cell plane, the backing store (poa_local_warp.cu's
-    whole int16 plane; poa_local_cluster.cu's counted rows; poa_local.cu's
-    zeroed f32 H instead), the tape and the scalars."""
+    route (at ``route_width(W)``), per problem of ``back_rows`` (its
+    host-counted backing rows): inputs, the u8 cell plane, the backing
+    store (poa_local_warp.cu's whole int16 plane; poa_local_cluster.cu's
+    counted rows), the tape and the scalars."""
+    kernel, W = local_route(W)
     fixed = V * (1 + 4 * P) + W + 8 + V * W + 4 * W + 16
-    if W in LOCAL_WARP_WIDTHS:
-        fixed += 2 * V * W
-    elif W not in CLUSTER_WIDTHS:
-        fixed += 4 * (V + 1) * W
     per = np.full(len(back_rows), fixed, dtype=np.int64)
-    if W in CLUSTER_WIDTHS:
+    if kernel == "poa_local_warp":
+        per += 2 * V * W
+    else:
         per += 2 * W * np.asarray(back_rows, dtype=np.int64)
     return per
 
@@ -1123,7 +1191,7 @@ def local_chunks(bgs, qs, v_pad: int, l_pad: int, budget: int = None):
             np.asarray([p.nq for p in probs], dtype=np.int32))
     W = l_pad + 1
     back = np.zeros(len(probs), dtype=np.int64)
-    if W in CLUSTER_WIDTHS:
+    if local_route(W)[0] == "poa_local_cluster":
         back = backing_rows_plain(torch.from_numpy(arrs[1]), torch.from_numpy(arrs[2]),
                                   LOCAL_RING, LOCAL_PINS).numpy().astype(np.int64)
     cost = np.cumsum(local_problem_bytes(v_pad, W, arrs[1].shape[-1], back))

@@ -9,9 +9,10 @@ chaining) on the card and keeps the largest chunk the cluster kernel
 copies of that source with nvcc, one library each, into
 ``_build/probe/``:
 
-  * ``slice512``: the source as it is (512 columns a CTA);
-  * ``slice256`` and ``slice1024``: 256 or 1,024 columns a CTA (at W
-    2,048: 8 CTAs of 2 warps, or 2 CTAs of 8 warps, a cluster);
+  * ``slice512``: the source as it is (512 columns a CTA up to W 8,192,
+    ``CLUSTER_SLICE``);
+  * ``slice256`` and ``slice1024``: 256 or 1,024 columns a CTA there (at
+    W 2,048: 8 CTAs of 2 warps, or 2 CTAs of 8 warps, a cluster);
   * ``nowalk``: the kernel ending after its last row, so it writes no
     score, best sink or tape: the DP's share of the time.
 
@@ -182,12 +183,13 @@ def main(argv=None) -> dict:
     ws, wk, wtb = PD.poa_dp_plain(*t, init)
     wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
     below_nv = torch.arange(V, device=dev)[None, :] < t[3][:, None]
-    out = {"card": card, "B": B, "V": V, "W": W, "P": P,
+    out = {"card": card, "B": B, "V": V, "W": W, "P": P, "slice": PD.CLUSTER_SLICE[W],
            "nv_mean": float(t[3].float().mean()), "nv_max": int(t[3].max()),
            "walk_steps_mean": float(wtl.float().mean()), "walk_steps_max": int(wtl.max()),
            "registers": {n: regs for n, (_so, regs) in libs.items()}, "chunk_ms": {},
            "alone_ms": {}}
-    print(f"[probe] largest long-read chunk B {B} V {V} W {W} P {P}: nv mean "
+    print(f"[probe] largest long-read chunk B {B} V {V} W {W} P {P} ({W // out['slice']} CTAs "
+          f"of {out['slice']} columns as the source stands): nv mean "
           f"{out['nv_mean']:.1f} max {out['nv_max']}, walk steps mean "
           f"{out['walk_steps_mean']:.1f} max {out['walk_steps_max']} ({card})")
     calls = {}

@@ -151,6 +151,71 @@ def long_reads(graph, n_long: int = 64, seed: int = 3) -> List[str]:
             for i, n in enumerate(lens)]
 
 
+# (window bp, query bp) of ``wide_route_problems``: subgraphs of about
+# 1,000-8,000 base vertices (V pads 1,024 to 8,192), queries of 8.3-14 kb
+WIDE_SHAPES = ((1000, 8300), (3500, 9000), (5000, 10500), (6500, 12000), (7200, 14000))
+
+
+def _path_window(graph, rng, window_bp: int):
+    """The node ids of a window of whole nodes, at least ``window_bp``
+    long, of a random haplotype path."""
+    from .graph.handlegraph import handle_id
+
+    paths = [graph.get_path(p).nodes for p in graph.paths_iter()]
+    steps = paths[int(rng.integers(len(paths)))]
+    lens = np.cumsum([len(graph.sequence(h)) for h in steps])
+    last = int(np.searchsorted(lens, lens[-1] - window_bp, side="right"))
+    start = int(rng.integers(0, max(last, 1)))
+    base = lens[start - 1] if start else 0
+    end = int(np.searchsorted(lens, base + window_bp, side="left")) + 1
+    return [handle_id(h) for h in steps[start:end]]
+
+
+def wide_route_problems(graph, shapes=WIDE_SHAPES, seed: int = 21) -> list:
+    """(nodes, edges, query) problems whose POA rows are 16,384 columns
+    wide and whose subgraph is under the device routes' cap of 8,192
+    base vertices: each subgraph is every node whose id lies between the
+    first and the last node of a haplotype path window (ids are
+    topological, so each bubble's other allele comes too) with the edges
+    among them, and each query is the window's sequence with a random
+    stretch inserted in its middle, 8,192-16,383 bp in all."""
+    from .graph.handlegraph import handle_id, handle_pack
+
+    out = []
+    for i, (window_bp, query_bp) in enumerate(shapes):
+        rng = np.random.default_rng(seed + i)
+        ids = _path_window(graph, rng, window_bp)
+        lo, hi = min(ids), max(ids)
+        nodes = [graph.sequence(handle_pack(n, False)) for n in range(lo, hi + 1)]
+        edges = [(handle_id(a) - lo, handle_id(b) - lo) for a, b in graph.edges()
+                 if lo <= handle_id(a) <= hi and lo <= handle_id(b) <= hi]
+        win = "".join(graph.sequence(handle_pack(n, False)) for n in ids)
+        k = len(win) // 2
+        query = win[:k] + _rand_seq(rng, query_bp - len(win)) + win[k:]
+        if sum(len(x) for x in nodes) > 8192 or not 8192 <= len(query) <= 16383:
+            raise ValueError(f"shape {(window_bp, query_bp)} misses 16,384 columns under the cap")
+        out.append((nodes, edges, query))
+    return out
+
+
+def wide_reads(graph, seed: int = 31) -> List[str]:
+    """Reads made as ``wide_route_problems``' queries are, for the CLI: a
+    path window of 3 kb from ``sample_reads`` with a random stretch
+    inserted at its end or its middle, 8.4 kb in all.  The mapper's
+    corridor subgraph of such a read is about the read's length, so
+    whether it lands under the 8,192-vertex cap (POA rows of 16,384
+    columns on the card) or on the host POA depends on where its chain
+    lies: on the synthetic graph of seed 0 the first lands over it (9,885
+    base vertices), the second under it (8,185)."""
+    out = []
+    for i, (window_bp, read_bp, where) in enumerate(((3000, 8400, 1.0), (3000, 8400, 0.5))):
+        rng = np.random.default_rng(seed + i)
+        win = sample_reads(graph, 1, window_bp, seed=300 + 2 * i)[0]
+        k = int(len(win) * where)
+        out.append(win[:k] + _rand_seq(rng, read_bp - window_bp) + win[k:])
+    return out
+
+
 def one_torch_thread():
     """Generator for a pytest fixture: torch on one intra-op thread while
     it is active.  Test tensors are tiny, and parallel test workers that
@@ -219,13 +284,15 @@ def _fan_probs(P: int) -> np.ndarray:
     return w / w.sum()
 
 
-def random_local_batch(seed: int, B: int, V: int, P: int, L: int, far_frac: float = 0.2):
+def random_local_batch(seed: int, B: int, V: int, P: int, L: int, far_frac: float = 0.2,
+                       min_nv: Optional[int] = None):
     """Local POA problems (vcodes, vpred, nv, q, nq) from
-    ``random_poa_batch`` with long local matches: each query but problem
-    0's holds a walk back along first predecessors with 5 % of its codes
-    changed, at a random offset; problem 0's query is all N, so it has
-    no positive cell."""
-    vcodes, vpred, _sink, nv, q, nq = random_poa_batch(seed, B, V, P, L, far_frac=far_frac)
+    ``random_poa_batch`` (nv drawn from [``min_nv``, V]) with long local
+    matches: each query but problem 0's holds a walk back along first
+    predecessors with 5 % of its codes changed, at a random offset;
+    problem 0's query is all N, so it has no positive cell."""
+    vcodes, vpred, _sink, nv, q, nq = random_poa_batch(seed, B, V, P, L, far_frac=far_frac,
+                                                       min_nv=min_nv)
     rng = np.random.default_rng(seed)
     for b in range(1, B):
         v, walk = int(rng.integers(nv[b] // 2, nv[b])), []
