@@ -62,11 +62,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
      ``map -p abpoa -D -G --precision auto`` over 12,288 100 bp reads of
      a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes),
      with ``-t 0`` (one rank on the one card, no process spawned):
-     K1 and K6 launched (K6 12 times), K2 and K3 not; the chunks' mean
-     nv and how many problems took K6's backing store; K6 held against
-     K2 + K3 and timed on the largest of those chunks; the first 256
-     reads again with ``--device cpu --precision fast`` (the plain
-     twins), and both GAFs byte-identical for those reads;
+     K1 and K6 launched (K6 twice: one launch of real problems under the
+     route's byte budget for each stream batch of 8,192 and 4,096 reads),
+     K2 and K3 not; the launches' mean nv and how many problems took K6's
+     backing store; K6 held against K2 + K3 and timed on the largest of
+     those launches, and that launch timed in turns against the ladder
+     plan it replaced (chunks of 1,024 problems), both on K6 with the
+     host's backing-row counts; the first 256 reads again with
+     ``--device cpu --precision fast`` (the plain twins), and both GAFs
+     byte-identical for those reads;
   5. the sharded path: the same reads through ``stream_map_align`` with
      ``Mapper(mesh=..., shard_index=True, precision="fast")`` and an
      abPOA ``PoaAligner(mesh=...)`` in a world-size-1 NCCL group on the
@@ -87,10 +91,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
      K8, not K2, K3 or K6, and a subgraph over 8,192 vertices on the
      native host POA), both GAFs byte-identical to ``--device cpu``; K1
-     held and timed on the launch that run gave it; K8 held against the
-     plain pair on every chunk that run gave it, and K8, K2 and K3 held
-     against their twins on the largest and timed there in turns (K2 +
-     K3, K8, K8, K2 + K3); then ``map -p rspoa -D -G --precision exact``
+     held and timed on the launch that run gave it; K8 launched 3 times,
+     once a (V, W) bucket, on real problems only, and held against the
+     plain pair on every launch, and K8, K2 and K3 held against their
+     twins on the largest and timed there in turns (K2 + K3, K8, K8, K2 +
+     K3), and that launch timed in turns against the ladder plan it
+     replaced (chunks of 32 problems); then ``map -p rspoa -D -G --precision exact``
      over the same reads (local POA rows of 2,048 and 4,096 columns: K9
      and K5 launched, K4, K7 and K1 not), both GAFs byte-identical to
      ``--device cpu``, each local POA launch's shape and bytes under the
@@ -103,7 +109,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
      (``PoaAligner._range_for_chain``, ``find_nodes_edges``) and held to
      the native extractor's in corridor mode (and in id mode with bubble
      closure on a seeded 1,024-read sample), then ``align_global_batch``
-     on the card: K6 once a chunk (12), K2, K3 and K8 not; every
+     on the card: K6 once a (V, L) bucket, K2, K3 and K8 not; every
      PoaResult and GAF row equal to the native CLI route's, and a seeded
      256-problem sample equal on the CPU; then the same on the long
      reads (K8 launched, the 10 kb read's subgraph on the native host
@@ -113,10 +119,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
      ``align_local_batch`` on the card over five problems of 8.3-14 kb
      queries on subgraphs under 8,192 base vertices: K8 and K9 launched
      at W 16,384, K2, K3 and K4 not, every result equal to the host
-     oracle and the smallest problem's to the CPU route; then two 8.4 kb
+     oracle and the smallest problem's to the CPU route, K8 and K9 at
+     most 3 launches each; the largest problem (V 8,192 x W 16,384)
+     alone through ``align_global_batch`` with its peak device memory
+     read around the call and held under the route's byte budget; then
+     two 8.4 kb
      reads through the CLI (abPOA, and rspoa + exact; one's POA on K8 and
      K9 at W 16,384, the other's over the vertex cap on the host): K8
-     held to the plain pair on its chunk, the rspoa GAFs byte-identical
+     held to the plain pair on its launch, the rspoa GAFs byte-identical
      to the CPU run;
  10. the suite runner: ``run_suite.run_dataset`` on two synthetic
      datasets (seeds 0 and 1) at 512 reads of 100 bp, abPOA, fast, on the
@@ -160,7 +170,13 @@ K = 11
 CPU_SAMPLE = 256
 SEED_GRAPH = 0
 N_LONG = 64
-MAIN_CHUNKS = 12  # the abPOA path's POA chunks for N_READS reads (1,024 problems each)
+# K6's launches on the abPOA path for N_READS reads: one a stream batch of
+# 8,192 and 4,096 reads (real problems only, under the route's byte budget)
+MAIN_LAUNCHES = 2
+LONG_LAUNCHES = 3  # K8's on the long reads' abPOA path: one a (V, W) bucket
+# the ladder plan the byte budget replaced: chunks of at most 1,024
+# problems (K6's rows), and of 32 at V 2,048 x W 2,048 (K8's)
+LADDER_CHUNK = {"poa_dp_tb": 1024, "poa_dp_tb_cluster": 32}
 
 # one H100 SXM: memory rate, and peak rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -658,9 +674,10 @@ def _time_in_turns(t, init, reps=10, fused=None):
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     fused = fused or PD.poa_dp_tb
+    back = PD.backing_rows_plain(t[1], t[3]).cpu().numpy()
     _s, sinks, tbits = PD.poa_dp(*t, init)
     PD.poa_traceback(tbits, t[1], sinks, t[5])
-    fused(*t, init)
+    fused(*t, init, back)
     torch.cuda.synchronize()
     k2, k3, k6 = [], [], []
     for turn in ("old", "new", "new", "old"):
@@ -668,8 +685,39 @@ def _time_in_turns(t, init, reps=10, fused=None):
             k2.append(_cuda_ms(lambda: PD.poa_dp(*t, init), reps))
             k3.append(_cuda_ms(lambda: PD.poa_traceback(tbits, t[1], sinks, t[5]), reps))
         else:
-            k6.append(_cuda_ms(lambda: fused(*t, init), reps))
+            k6.append(_cuda_ms(lambda: fused(*t, init, back), reps))
     return k2, k3, k6
+
+
+def _plan_turns(t, init, fused, chunk, reps=10):
+    """One launch of ``fused`` (K6 or K8) over the whole batch t, the byte
+    budget's plan, against the ladder plan it replaced, launches of at
+    most ``chunk`` of the same real problems (without the zeroed pads
+    that plan added to its last chunk), both with the host's backing-row
+    counts, in turns ladder, one, one, ladder.  Returns (one launch ms,
+    ladder ms, the ladder's launches), two turns each."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    back = PD.backing_rows_plain(t[1], t[3]).cpu().numpy()
+    B = t[0].shape[0]
+    cuts = [(s, min(s + chunk, B)) for s in range(0, B, chunk)]
+
+    def ladder():
+        for s, e in cuts:
+            fused(*(x[s:e] for x in t), init, back[s:e])
+
+    ladder()
+    fused(*t, init, back)
+    torch.cuda.synchronize()
+    one, old = [], []
+    for turn in ("old", "new", "new", "old"):
+        if turn == "old":
+            old.append(_cuda_ms(ladder, reps))
+        else:
+            one.append(_cuda_ms(lambda: fused(*t, init, back), reps))
+    return one, old, len(cuts)
 
 
 def _turns_line(k2, k3, k6, name="K6"):
@@ -1072,33 +1120,54 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
         torch.multiprocessing.spawn = spawn
     if cli.resolve_ranks(0, "cuda") != 1 or torch.distributed.is_initialized():
         raise AssertionError("-t 0 on the one card did not resolve to one rank")
-    if launches["poa_dp_tb"] != MAIN_CHUNKS:
+    if launches["poa_dp_tb"] != MAIN_LAUNCHES:
         raise AssertionError(f"poa_dp_tb launched {launches['poa_dp_tb']} times, "
-                             f"not once per chunk ({MAIN_CHUNKS})")
+                             f"not once a stream batch ({MAIN_LAUNCHES})")
     print(f"[main] map -p abpoa -D on {N_READS} reads: {took:.2f} s, {N_READS / took:.1f} "
           f"reads/s streamed map+align ({card}); launches {launches}")
     n_chains, mapped = _check_gaf(out, N_READS, {f"read{i}": READ_LEN for i in range(N_READS)})
     print(f"[main] {n_chains} chain rows, {mapped}/{N_READS} reads aligned")
 
-    stats = [chunk_stats(a[1].cpu().numpy(), a[3].cpu().numpy(), int((a[3] > 0).sum()))
+    stats = [chunk_stats(a[1].cpu().numpy(), a[3].cpu().numpy(), a[3].shape[0])
              for a, _nb in chunks]
     if not all(c["topological"] for c in stats):
-        raise AssertionError("a main-path chunk has a predecessor at or past its vertex")
+        raise AssertionError("a main-path launch has a predecessor at or past its vertex")
+    if not all(bool((a[3] > 0).all()) for a, _nb in chunks):
+        raise AssertionError("a main-path launch holds a padding problem")
     problems = sum(c["problems"] for c in stats)
     on_backing = sum(int((nb > 0).sum()) for _a, nb in chunks)
-    print(f"[main] poa_dp_tb chunks: {len(chunks)}, {problems} problems, mean nv "
+    print(f"[main] poa_dp_tb launches: {len(chunks)} of {[a[0].shape[0] for a, _nb in chunks]} "
+          f"real problems, {problems} in all, mean nv "
           f"{sum(c['nv_sum'] for c in stats) / problems:.2f}, every predecessor before its "
           f"vertex, far vertices per problem max {max(c['far8_max'] for c in stats)} (ring 8) "
           f"/ {max(c['far16_max'] for c in stats)} (ring 16); {on_backing} problems took the "
           "backing store")
     args = max((a for a, _nb in chunks), key=lambda a: int(a[3].sum()))
+    t, init = args[:6], args[6]
     errs = []
-    _fused_check(args[:6], args[6], "poa_dp_tb on the main reads' largest chunk", errs)
-    k2, k3, k6 = _time_in_turns(args[:6], args[6])
-    results["poa_dp_tb"]["max_abs_err"] = max(results["poa_dp_tb"]["max_abs_err"], *errs)
-    print(f"[main] largest chunk B={args[0].shape[0]} V={args[0].shape[1]} "
-          f"W={args[6].shape[0]} mean nv {float(args[3].float().mean()):.1f}: equal to the "
-          f"plain pair; in turns {_turns_line(k2, k3, k6)}")
+    _fused_check(t, init, "poa_dp_tb on the main reads' largest launch", errs)
+    k2, k3, k6 = _time_in_turns(t, init)
+    one, ladder, n_ladder = _plan_turns(t, init, PD.poa_dp_tb, LADDER_CHUNK["poa_dp_tb"])
+    plain = _cuda_ms(lambda: _plain_pair(t, init), 1)
+    B, V = t[0].shape
+    tlen = PD.poa_dp_tb(*t, init)[4]
+    dp_bytes, dp_ops = _poa_dp_work(t)
+    tb_bytes, tb_ops = _walk_work(tlen, B, V, init.shape[0], False)
+    warps, blocks, smem = PD.poa_dp_tb_occupancy(t[1].shape[-1], init.shape[0], V)
+    sms = torch.cuda.get_device_properties(t[0].device).multi_processor_count
+    results["poa_dp_tb"].update(
+        max_abs_err=max(results["poa_dp_tb"]["max_abs_err"], *errs), ms=sum(k6) / 2,
+        plain_ms=plain, **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
+    k6r = results["poa_dp_tb"]
+    print(f"[main] largest launch B={B} V={V} W={init.shape[0]} P={t[1].shape[-1]} mean nv "
+          f"{float(t[3].float().mean()):.1f}: equal to the plain pair; in turns "
+          f"{_turns_line(k2, k3, k6)}; K6 bound {k6r['bound_ms']:.4f} ({k6r['bound_by']}), "
+          f"plain pair {plain:.3f} ms; {warps} problems a block, {blocks} blocks an SM, {smem} B "
+          f"shared memory a block, {min(B, warps * blocks * sms)} of {B} problems resident at "
+          f"once ({min(B, warps * blocks * sms) / sms:.2f} warps an SM); one launch against the "
+          f"ladder plan's {n_ladder} launches of at most {LADDER_CHUNK['poa_dp_tb']}, in turns: "
+          f"ladder {ladder[0]:.4f}, one {one[0]:.4f}, one {one[1]:.4f}, ladder {ladder[1]:.4f} "
+          f"ms ({card})")
     torch.cuda.synchronize()
 
     n = _cpu_rerun(work, "main", prefix, gfa, reads, out, ["-p", "abpoa", "--precision", "fast"])
@@ -1364,6 +1433,12 @@ def phase_long_reads(work, prefix, gfa, graph, card, results):
     finally:
         PD.poa_dp_tb_cluster = real
         C.chain_dp = real_k1
+    if launches["poa_dp_tb_cluster"] != LONG_LAUNCHES:
+        raise AssertionError(f"the long-read path launched poa_dp_tb_cluster "
+                             f"{launches['poa_dp_tb_cluster']} times, not once a bucket "
+                             f"({LONG_LAUNCHES})")
+    if not all(bool((a[3] > 0).all()) for a in chunks):
+        raise AssertionError("a long-read K8 launch holds a padding problem")
     n_chains, mapped = _check_gaf(out, len(reads),
                                   {f"read{i}": len(r) for i, r in enumerate(reads)})
     t0 = time.monotonic()
@@ -1374,19 +1449,16 @@ def phase_long_reads(work, prefix, gfa, graph, card, results):
           f"the CPU plain path ({cpu_took:.2f} s), chains and alignments GAF byte-identical; "
           f"launches {launches}")
     _long_chain_launch("K1", captured["chain_dp"][0], False, card)
-    # each chunk's real problems (nv > 0), the ones its drain decodes: a
-    # padding problem's walk reads rows past its nv, which only the plain
-    # pair computes
     errs = []
     for i, args in enumerate(chunks):
-        real = args[3] > 0
-        _fused_check([x[real].contiguous() for x in args[:6]], args[6],
-                     f"poa_dp_tb_cluster on the long reads' chunk {i}", errs, PD.poa_dp_tb_cluster)
+        _fused_check(args[:6], args[6], f"poa_dp_tb_cluster on the long reads' launch {i}", errs,
+                     PD.poa_dp_tb_cluster)
     k8 = results["poa_dp_tb_cluster"]
     k8["max_abs_err"] = max(k8["max_abs_err"], *errs)
-    print(f"[long] K8 equal to the plain pair on the real problems of each of the {len(chunks)} "
-          "chunks (real problems, B, V, W): " + ", ".join(
-              str((int((a[3] > 0).sum()), a[0].shape[0], a[0].shape[1], a[6].shape[0]))
+    print(f"[long] K8 equal to the plain pair on each of the {len(chunks)} launches (B, V, W, "
+          "device bytes): " + ", ".join(
+              str((a[0].shape[0], a[0].shape[1], a[6].shape[0], int(PD.global_problem_bytes(
+                  a[0].shape[1], a[6].shape[0], a[1].shape[-1], a[7]).sum())))
               for a in chunks))
     _long_chunk_kernels(max(chunks, key=lambda a: int(a[3].sum()) * a[4].shape[1]), card,
                         results)
@@ -1481,30 +1553,33 @@ def _long_local_batches(batches, card, results):
 
 
 def _long_chunk_kernels(args, card, results):
-    """K8, and K2 + K3, on the long-read path's largest chunk: held against
-    the twins (score, best_sink, tbits below nv; tape and tlen), timed in
-    turns (K2 + K3, K8, K8, K2 + K3), and bounded from that chunk."""
+    """K8, and K2 + K3, on the long-read path's largest launch: held
+    against the twins (score, best_sink, tbits below nv; tape and tlen),
+    timed in turns (K2 + K3, K8, K8, K2 + K3) and against the ladder plan
+    (``_plan_turns``), and bounded from that launch."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     t, init = args[:6], args[6]
     errs, errs8 = [], []
-    nb = _fused_check(t, init, "poa_dp_tb_cluster on the long reads' largest chunk", errs8,
+    nb = _fused_check(t, init, "poa_dp_tb_cluster on the long reads' largest launch", errs8,
                       PD.poa_dp_tb_cluster)
     score, sinks, tbits = PD.poa_dp(*t, init)
     tape, tlen = PD.poa_traceback(tbits, t[1], sinks, t[5])
     torch.cuda.synchronize()
     ws, wk, wtb = PD.poa_dp_plain(*t, init)
-    _check_equal("poa_dp on the long reads' largest chunk", ("score", "best_sink"),
+    _check_equal("poa_dp on the long reads' largest launch", ("score", "best_sink"),
                  (score, sinks), (ws, wk), errs)
     below_nv = torch.arange(tbits.shape[1], device=tbits.device)[None, :] < t[3][:, None]
     if not torch.equal(tbits[below_nv], wtb[below_nv]):
-        raise AssertionError("poa_dp on the long reads' largest chunk: tbits differ below nv")
+        raise AssertionError("poa_dp on the long reads' largest launch: tbits differ below nv")
     wtape, wtl = PD.poa_traceback_plain(tbits, t[1], sinks, t[5])
-    _check_equal("poa_traceback on the long reads' largest chunk", ("tape", "tlen"),
+    _check_equal("poa_traceback on the long reads' largest launch", ("tape", "tlen"),
                  (tape, tlen), (wtape, wtl), errs)
     k2, k3, k8 = _time_in_turns(t, init, fused=PD.poa_dp_tb_cluster)
+    one, ladder, n_ladder = _plan_turns(t, init, PD.poa_dp_tb_cluster,
+                                        LADDER_CHUNK["poa_dp_tb_cluster"])
     plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
     plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
     B, V, W = tbits.shape
@@ -1522,14 +1597,17 @@ def _long_chunk_kernels(args, card, results):
         **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
     ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, W, V)
     k8r = results["poa_dp_tb_cluster"]
-    print(f"[long] largest chunk B={B} V={V} W={W} P={P} mean nv {float(t[3].float().mean()):.1f} "
+    print(f"[long] largest launch B={B} V={V} W={W} P={P} mean nv {float(t[3].float().mean()):.1f} "
           f"(max {int(t[3].max())}), {int((nb > 0).sum())} problems on K8's backing store: K8, K2 "
           f"and K3 equal to the twins; in turns {_turns_line(k2, k3, k8, 'K8')}; K8 bound "
           f"{k8r['bound_ms']:.4f} ({k8r['bound_by']}), {ctas} CTAs a cluster, {B * ctas} CTAs, "
           f"{clusters} clusters resident, {smem} B shared memory a CTA; K2 bound "
           f"{results['poa_dp']['bound_ms']:.4f} ({results['poa_dp']['bound_by']}; plain "
           f"{plain_dp:.3f}), K3 bound {results['poa_traceback']['bound_ms']:.4f} "
-          f"({results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}) ({card})")
+          f"({results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}); K8 in one launch "
+          f"against the ladder plan's {n_ladder} launches of at most "
+          f"{LADDER_CHUNK['poa_dp_tb_cluster']}, in turns: ladder {ladder[0]:.4f}, one "
+          f"{one[0]:.4f}, one {one[1]:.4f}, ladder {ladder[1]:.4f} ms ({card})")
 
 
 def phase_wide_route(work, prefix, gfa, graph, dev, card):
@@ -1540,16 +1618,18 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
     just before it and read just after: K8 and K9 launched, at W 16,384
     only, K2, K3, K4, K6 and K7 not; every result equal to the host
     oracle (``poa_global_host_native``, ``align_local_no_gap_host``), and
-    the smallest problem's to the ``device="cpu"`` route.  Then
+    the smallest problem's to the ``device="cpu"`` route, and at most 3
+    launches of each kernel (one a (V, W) bucket); the largest problem
+    alone, its peak device memory under the route's byte budget
+    (``_lone_wide_problem``).  Then
     ``testing.wide_reads`` (8.4 kb: a 3 kb path window and an inserted
     stretch) through the CLI, abPOA and rspoa + exact, with where each
     read's POA ran: one read's corridor subgraph lands under the
     8,192-vertex cap (K8 and K9 at W 16,384), the other over it (the host
     POA).  The rspoa run's GAFs are held to the CPU run's; the abPOA
-    run's K8 launch is held to the plain pair on the card on its real
-    problems (the CPU run of that chunk, 8 ladder rows of V 8,192 x W
-    16,384, takes minutes of host time).  Returns the launches of the two
-    library calls."""
+    run's K8 launch is held to the plain pair on the card (a CPU run of
+    that launch, V 8,192 x W 16,384 on the host, is not made).  Returns
+    the launches of the two library calls."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -1604,6 +1684,9 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
                 raise AssertionError(f"[wide route] {name}: launches {launches}")
             if not seen or any(w != 16384 for _k, _v, w in seen):
                 raise AssertionError(f"[wide route] {name}: launches at {seen}, not W 16,384")
+            if launches[want] > 3:
+                raise AssertionError(f"[wide route] {name}: {launches[want]} launches of {want} "
+                                     "for three (V, W) buckets")
             legs[name] = (got, took, launches, list(seen))
     finally:
         PD.poa_dp_tb_cluster, PD.poa_local_cluster = real[:2]
@@ -1630,6 +1713,7 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
               f"counters {launches}; scores {[r.best_score for r in got]}")
     print(f"[wide route] every result equal to the host oracle ({oracle_s:.2f} s) and problem "
           f"{small} to the CPU route ({cpu_s:.2f} s)")
+    _lone_wide_problem(problems, shapes, legs["align_global_batch"][0], dev, card)
 
     reads = wide_reads(graph)
     fasta = os.path.join(work, "wide.fa")
@@ -1658,11 +1742,9 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
         if engine == "abpoa":
             errs = []
             for a in k8_args:
-                real_rows = a[3] > 0
-                _fused_check([x[real_rows].contiguous() for x in a[:6]], a[6],
-                             "poa_dp_tb_cluster on the wide reads' chunk", errs,
+                _fused_check(a[:6], a[6], "poa_dp_tb_cluster on the wide reads' launch", errs,
                              PD.poa_dp_tb_cluster)
-            held = "K8 equal to the plain pair on the card on its chunk's real problems"
+            held = "K8 equal to the plain pair on the card on its launch"
         else:
             n = _cpu_rerun(work, f"wide-{engine}", prefix, gfa, reads, out, argv, len(reads))
             held = f"chains and alignments GAF of all {n} reads byte-identical to the CPU run"
@@ -1672,6 +1754,55 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
               f"{launches}")
     print(f"[wide route] done in {time.monotonic() - t0:.2f} s ({card})")
     return legs["align_global_batch"][2], legs["align_local_batch"][2]
+
+
+def _lone_wide_problem(problems, shapes, want, dev, card):
+    """The largest of the wide problems (V 8,192 x W 16,384) alone through
+    ``align_global_batch`` on the card: one K8 launch, the result of the
+    batched call, and the call's peak device memory above what was
+    allocated before it (``reset_peak_memory_stats``,
+    ``max_memory_allocated``) under the route's byte budget."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    big = max(range(len(problems)), key=lambda i: shapes[i][0])
+    V, L = PD._next_pow2(max(shapes[big][0], 256)), PD._l_pad_for(shapes[big][1])
+    if (V, PD.global_route(L + 1)[1]) != (8192, 16384):
+        raise AssertionError(f"[wide route] the largest problem is at V {V} x L {L}")
+    captured = []
+    real = PD.poa_dp_tb_cluster
+
+    def keep(*args):
+        captured.append((args[1].shape[-1], int(args[7][0])))
+        return real(*args)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    PD.poa_dp_tb_cluster = keep
+    try:
+        got = PD.align_global_batch([problems[big]], dev)[0]
+        torch.cuda.synchronize()
+    finally:
+        PD.poa_dp_tb_cluster = real
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernels.launch_counts()
+    if launches["poa_dp_tb_cluster"] != 1 or got != want[big]:
+        raise AssertionError(f"[wide route] the lone problem: launches {launches}, result equal "
+                             f"to the batched call's: {got == want[big]}")
+    P, back = captured[0]
+    planned = int(PD.global_problem_bytes(V, L + 1, P, [back])[0])
+    if peak - before >= PD._HBM_BUDGET:
+        raise AssertionError(f"[wide route] the lone V 8,192 x W 16,384 problem took "
+                             f"{peak - before} bytes of device memory, over {PD._HBM_BUDGET}")
+    print(f"[wide route] lone problem {big} ({shapes[big][0]} base vertices, {shapes[big][1]} bp: "
+          f"V {V} x W 16,384) through align_global_batch: one K8 launch, equal to the batched "
+          f"call; {back} backing rows; peak device memory {peak - before} bytes above the "
+          f"{before} allocated before it ({peak} in all), under the budget of {PD._HBM_BUDGET} "
+          f"(the route's plan at P {P}: {planned}) ({card})")
 
 
 def _route_problems(index, aligner, chains):
@@ -1705,7 +1836,7 @@ def _route_leg(label, index, aligner, queries, dev, must, must_not, cpu_sample, 
     row to the native CLI route's (``_finish_chains(_dispatch_chains())``)
     and a seeded sample of ``cpu_sample`` problems to the CPU run.
     Returns (launches, problems, each read's chains, the base vertices of
-    each problem the host POA took)."""
+    each problem the host POA took, the (V, L) buckets of the rest)."""
     import dataclasses
 
     import torch
@@ -1776,12 +1907,14 @@ def _route_leg(label, index, aligner, queries, dev, must, must_not, cpu_sample, 
           f"and GAF row equal to the native route's; {len(host_calls)} on the host POA "
           f"(base vertices {host_calls}); {len(pick)} problems again on the CPU ({cpu_s:.2f} s), "
           f"equal; launches {launches}")
-    return launches, len(problems), per_read, host_calls
+    buckets = {(PD._next_pow2(max(v, 256)), PD._l_pad_for(len(q))) for v, q in (
+        (sum(len(x) for x in n), q) for n, _e, q in problems) if v <= 8192}
+    return launches, len(problems), per_read, host_calls, len(buckets)
 
 
 def phase_python_route(index, graph, reads, dev, card):
     """The Python subgraph route and ``align_global_batch`` on the smoke's
-    graph: the 12,288 reads (K6 on every chunk, K2 and K3 not; id mode
+    graph: the 12,288 reads (K6 once a (V, L) bucket, K2 and K3 not; id mode
     with bubble closure on a seeded 1,024-read sample), then the long
     reads (K8; the 10 kb read's subgraph on the native host POA)."""
     from vgaligner_tpu_torch.io.fastx import QuerySequence
@@ -1792,15 +1925,14 @@ def phase_python_route(index, graph, reads, dev, card):
     t0 = time.monotonic()
     aligner = PoaAligner(index)  # abPOA, corridor, and the card by default
     queries = [QuerySequence.from_name_and_string(f"read{i}", r) for i, r in enumerate(reads)]
-    launches, n_problems, per_read, _host = _route_leg(
+    launches, n_problems, per_read, _host, buckets = _route_leg(
         "100 bp reads", index, aligner, queries, dev, ("poa_dp_tb",),
         ("poa_dp", "poa_traceback", "poa_dp_tb_cluster"), CPU_SAMPLE, card)
-    chunks = -(-n_problems // PD._b_chunk_for(256, PD._l_pad_for(READ_LEN)))
-    if launches["poa_dp_tb"] != chunks:
+    if launches["poa_dp_tb"] != buckets:
         raise AssertionError(f"align_global_batch launched poa_dp_tb {launches['poa_dp_tb']} "
-                             f"times for {n_problems} problems, not once a chunk ({chunks})")
-    print(f"[python route] poa_dp_tb launched {chunks} times for {n_problems} problems (the "
-          f"main leg: {MAIN_CHUNKS})")
+                             f"times for {n_problems} problems, not once a bucket ({buckets})")
+    print(f"[python route] poa_dp_tb launched {buckets} times for {n_problems} problems, once a "
+          f"(V, L) bucket (the main leg: {MAIN_LAUNCHES}, one a stream batch)")
     by_id = PoaAligner(index, range_mode="id", bubble_closure=True)
     pick = np.random.default_rng(11).choice(len(queries), min(1024, len(queries)), replace=False)
     id_chains = [c for i in sorted(int(x) for x in pick)
@@ -1811,11 +1943,14 @@ def phase_python_route(index, graph, reads, dev, card):
           f"({id_s:.2f} s on the host)")
     long_q = [QuerySequence.from_name_and_string(f"read{i}", r)
               for i, r in enumerate(long_reads(graph, N_LONG))]
-    launches_long, _n, _per_read, host = _route_leg(
+    launches_long, _n, _per_read, host, buckets = _route_leg(
         "long reads", index, aligner, long_q, dev, ("poa_dp_tb_cluster",),
         ("poa_dp", "poa_traceback"), 8, card)
     if not any(v > 8192 for v in host):
         raise AssertionError("the 10 kb read's subgraph did not take the native host POA")
+    if launches_long["poa_dp_tb"] + launches_long["poa_dp_tb_cluster"] != buckets:
+        raise AssertionError(f"align_global_batch on the long reads launched {launches_long}, "
+                             f"not once a bucket ({buckets})")
     print(f"[python route] done in {time.monotonic() - t0:.2f} s ({card})")
     return launches, launches_long
 

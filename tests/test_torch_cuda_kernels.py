@@ -164,6 +164,63 @@ def test_poa_dp_tb_cluster_kernel_at_its_largest_problem(cuda_device):
     assert (_cluster_matches_plain(cuda_device, arrs) > 0).all()
 
 
+def _backing_batch(W, V, seed):
+    """Six problems with far predecessors past the pins (the cluster
+    widths with the edge cases: a predecessor at and past its vertex, nv
+    = 4), then two within the row ring."""
+    far = random_poa_batch(seed, 6, V, 4, W - 1, far_frac=0.3)
+    if W > 256:
+        far = with_poa_edge_cases(far, empty=False)
+    near = random_poa_batch(seed + 1, 2, V, 4, W - 1, far_frac=0.0)
+    return [np.concatenate(x) for x in zip(far, near)]
+
+
+@pytest.mark.parametrize("W,V", [(128, 256), (512, 256), (2048, 256), (16384, 128)])
+def test_fused_kernels_take_host_counted_backing_rows(cuda_device, W, V):
+    """K6 (W 128) and K8 (W 512-16,384) given the host's backing-row
+    counts, as the route calls them: a backing store of exactly those
+    rows, and every output equal to the plain pair's, bit for bit."""
+    arrs = _backing_batch(W, V, 900 + W)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(W - 1)).to(cuda_device)
+    back = PD.backing_rows_plain(t[1], t[3]).cpu().numpy()
+    assert (back[:6] > 0).any() and (back[6:] == 0).all()
+    fused = PD.poa_dp_tb if W <= 256 else PD.poa_dp_tb_cluster
+    score, sink, tbits, tape, tlen, n_backing = fused(*t, init, back)
+    ws, wk, wtb = PD.poa_dp_plain(*t, init)
+    wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
+    assert torch.equal(score, ws) and torch.equal(sink, wk)
+    for b, n in enumerate(arrs[3]):
+        assert torch.equal(tbits[b, :n], wtb[b, :n])
+    assert torch.equal(tlen, wtl) and torch.equal(tape, wtape)
+    assert n_backing.cpu().numpy().tolist() == back.tolist()
+
+
+@pytest.mark.parametrize("W", [128, 2048])
+def test_fused_kernels_flag_too_few_backing_rows(cuda_device, W):
+    """Given one backing row fewer than a problem needs, K6 and K8 write
+    no row past those they were given and mark the problem with tlen -1
+    (the others unchanged), and the route's drain raises."""
+    V = 256
+    arrs = _backing_batch(W, V, 950 + W)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    init = torch.from_numpy(PD.make_init_row(W - 1)).to(cuda_device)
+    back = PD.backing_rows_plain(t[1], t[3]).cpu().numpy()
+    short = np.maximum(back - 1, 0)
+    fused = PD.poa_dp_tb if W <= 256 else PD.poa_dp_tb_cluster
+    tlen, n_backing = (x.cpu().numpy() for x in fused(*t, init, short)[4:])
+    _ws, wk, wtb = PD.poa_dp_plain(*t, init)
+    want = PD.poa_traceback_plain(wtb, t[1], wk, t[5])[1].cpu().numpy()
+    assert (tlen[back > 0] == -1).all() and (tlen[back == 0] == want[back == 0]).all()
+    assert n_backing.tolist() == back.tolist()
+    zeros = np.zeros((len(back), V), dtype=np.int32)
+    chunk = (arrs[0], arrs[1], arrs[2], arrs[3], zeros, zeros)
+    qs = [arrs[4][b, : arrs[5][b]] for b in range(len(back))]
+    pending = PD.kernel_dispatch(chunk, qs, V, W - 1, cuda_device, short)
+    with pytest.raises(RuntimeError, match="backing rows"):
+        PD.kernel_finish_all([pending])
+
+
 @pytest.mark.parametrize("P", [2, 4, 8])
 def test_cluster_kernels_resident_at_the_widest_rows(cuda_device, P):
     """At W 16,384 and V 8,192 the card keeps a cluster of each kernel

@@ -169,10 +169,8 @@ def test_slice_preds_matches_jax():
 
 
 def test_ladders_match_jax():
-    for n in (1, 7, 8, 9, 100, 1024, 3000):
-        assert PD._b_pad_for(n) == JPD._b_pad_for(n)
-        for v_pad, l_pad in ((256, 127), (2048, 127), (8192, 1023)):
-            assert PD.padded_rows(n, v_pad, l_pad) == JPD.padded_rows(n, v_pad, l_pad)
-            assert PD._b_chunk_for(v_pad, l_pad) == JPD._b_chunk_for(v_pad, l_pad)
+    # the batch ladder (_b_pad_for, padded_rows, _b_chunk_for) left the
+    # port with its last caller: the global route launches real problems
+    # under a byte budget (tests/test_torch_global_chunks.py)
     for n in (1, 100, 127, 128, 600):
         assert PD._l_pad_for(n) == JPD._l_pad_for(n)

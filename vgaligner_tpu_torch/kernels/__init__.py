@@ -171,11 +171,11 @@ def lib() -> ctypes.CDLL:
         so.vg_poa_dp.restype = ci
         so.vg_poa_traceback.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 3
         so.vg_poa_traceback.restype = ci
-        so.vg_poa_dp_tb.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        so.vg_poa_dp_tb.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 9
         so.vg_poa_dp_tb.restype = ci
         so.vg_poa_dp_tb_occupancy.argtypes = [ci, ci, ci, vp]
         so.vg_poa_dp_tb_occupancy.restype = ci
-        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 9
         so.vg_poa_dp_tb_cluster.restype = ci
         so.vg_poa_dp_tb_cluster_occupancy.argtypes = [ci, ci, ci, vp]
         so.vg_poa_dp_tb_cluster_occupancy.restype = ci

@@ -9,7 +9,7 @@
 // vgaligner_tpu/ops/poa_device.py::traceback_batch (:325).  Its outputs
 // are bit-identical to ops/poa_device.py::poa_dp_plain followed by
 // poa_traceback_plain: score, best_sink, tbits over rows v < nv[b], tape
-// and tlen.  Wider rows keep poa_dp.cu and poa_traceback.cu.
+// and tlen.  Wider rows take poa_dp_tb_cluster.cu.
 //
 // The recurrence, the f32 operations and their order, the tie rules and
 // the 19 decision bits are poa_dp.cu's (see there); the walk is
@@ -37,10 +37,18 @@
 //    the warp marks in a per-problem bitmap every vertex that some later
 //    vertex reads from that far; the first PINS of them, in ascending id,
 //    get the pinned rows, as the JAX kernel's host-planned pins do.  The
-//    rest are written to a global backing store [B, V, 3W] and read back
-//    from there (only those rows; n_backing[b] counts them).  A
-//    predecessor at or past v reads the all-NEGF sentinel, which is what
-//    an unwritten row holds in the plain version, so no row is filled;
+//    rest are written to a global backing store and read back from there
+//    (n_backing[b] counts them).  The store holds only the rows the host
+//    counted for each problem (back_off: each problem's first row, so a
+//    launch takes [sum of its problems' rows, 3W] floats, not [B, V, 3W]);
+//    a far vertex's row is its rank among its problem's unpinned far
+//    vertices (a running count for writes, which go out in ascending v;
+//    the warp's count from the bitmap for reads).  A problem whose far
+//    vertices need more rows than it was given (the host and the kernel
+//    disagree) writes and reads no row past them and gets tlen -1, which
+//    the caller treats as an error.  A predecessor at or past v reads the
+//    all-NEGF sentinel, which is what an unwritten row holds in the plain
+//    version, so no row is filled;
 //  * predecessor ids, codes and sink flags: lane l holds those of vertex
 //    32k + l for the current and the next block of 32 rows, and a row
 //    takes its own by shuffle;
@@ -154,15 +162,28 @@ __device__ __forceinline__ void load_meta(const int* vp_b, const int8_t* vc_b,
   }
 }
 
+// a far vertex's row in its problem's backing store: the far vertices
+// below v that are not pinned, counted by the whole warp (v is the same
+// in every lane; one bitmap word a lane up to V 1,024, then one redux.sync)
+__device__ __forceinline__ int back_rank(const unsigned* bm, int v, int lane) {
+  const int wv = v >> 5;
+  int cnt = 0;
+  for (int i = lane; i <= wv; i += 32) {
+    const unsigned m = bm[i];
+    cnt += __popc(i == wv ? m & ((1u << (v & 31)) - 1u) : m);
+  }
+  return __reduce_add_sync(FULL, cnt);
+}
+
 template <int P, int C, int NW>
 __global__ void __launch_bounds__(NW * 32, 3)
     poa_dp_tb_kernel(const int8_t* __restrict__ vcodes, const int* __restrict__ vpred,
                      const uint8_t* __restrict__ is_sink, const int* __restrict__ nv,
                      const int8_t* __restrict__ q, const int* __restrict__ nq,
                      const float* __restrict__ init_row, int B, int V, int L, int bm_words,
-                     float* __restrict__ backing, float* __restrict__ score,
-                     int* __restrict__ best_sink, int* __restrict__ tbits,
-                     int* __restrict__ tape, int* __restrict__ tlen,
+                     const int* __restrict__ back_off, float* __restrict__ backing,
+                     float* __restrict__ score, int* __restrict__ best_sink,
+                     int* __restrict__ tbits, int* __restrict__ tape, int* __restrict__ tlen,
                      int* __restrict__ n_backing) {
   constexpr int W = 32 * C;
   constexpr int RS = 3 * W;  // floats in a state row: H, E1, E2
@@ -217,13 +238,17 @@ __global__ void __launch_bounds__(NW * 32, 3)
       if (pin[k] >= 0) bm[pin[k] >> 5] &= ~(1u << (pin[k] & 31));
   }
   __syncwarp();
-  {
-    int cnt = 0;
-    for (int w = lane; w < bm_words; w += 32) cnt += __popc(bm[w]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(FULL, cnt, off);
-    if (lane == 0) n_backing[b] = cnt;
-  }
+  int n_far = 0;  // this problem's far vertices past the pins
+  for (int w = lane; w < bm_words; w += 32) n_far += __popc(bm[w]);
+  n_far = __reduce_add_sync(FULL, n_far);
+  if (lane == 0) n_backing[b] = n_far;
+  // the rows the host counted for this problem; a row past them is
+  // neither written nor read, and tlen says -1
+  const int n_back = min(n_far, back_off[b + 1] - back_off[b]);
+  float* back_b = backing + (size_t)back_off[b] * RS;
+  // backing rows written so far: rows go out in ascending v, so this is
+  // the rank of the next one (back_rank's count for reads)
+  int n_written = 0;
 
   // (2) the lane's query codes, virtual-source row and gap slopes e*j
   int qv[C];
@@ -298,10 +323,20 @@ __global__ void __launch_bounds__(NW * 32, 3)
           load_cols<C>(s + W, lane, e1);
           load_cols<C>(s + 2 * W, lane, e2);
         } else {
-          const float* g = backing + ((size_t)b * V + pp) * RS;
-          load_cols<C>(g, lane, h);
-          load_cols<C>(g + W, lane, e1);
-          load_cols<C>(g + 2 * W, lane, e2);
+          const int rank = back_rank(bm, pp, lane);
+          if (rank < n_back) {
+            const float* g = back_b + (size_t)rank * RS;
+            load_cols<C>(g, lane, h);
+            load_cols<C>(g + W, lane, e1);
+            load_cols<C>(g + 2 * W, lane, e2);
+          } else {
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              h[c] = NEGF;
+              e1[c] = NEGF;
+              e2[c] = NEGF;
+            }
+          }
         }
       } else if (pp < 0 && p == 0 && !has_any) {
         // the virtual source: H = init_row, E1 = E2 = NEGF
@@ -421,8 +456,11 @@ __global__ void __launch_bounds__(NW * 32, 3)
 #pragma unroll
     for (int k = 0; k < PINS; ++k)
       if (pin[k] == v) store_row<C>(rows + (RING + k) * RS, lane, hrow, best1, best2);
-    if ((bm[v >> 5] >> (v & 31)) & 1u)
-      store_row<C>(backing + ((size_t)b * V + v) * RS, lane, hrow, best1, best2);
+    if ((bm[v >> 5] >> (v & 31)) & 1u) {
+      if (n_written < n_back)
+        store_row<C>(back_b + (size_t)n_written * RS, lane, hrow, best1, best2);
+      ++n_written;
+    }
     store_bits<C>(tbits + ((size_t)b * V + v) * W, lane, pbits);
 
     if (own >= 0 && own < C) {
@@ -508,7 +546,7 @@ __global__ void __launch_bounds__(NW * 32, 3)
   }
   n = __shfl_sync(FULL, n, 0);
   for (int t = n + lane; t < T; t += 32) tp[t] = END_FILL;
-  if (lane == 0) tlen[b] = n;
+  if (lane == 0) tlen[b] = n_back < n_far ? -1 : n;
 }
 
 // problems a block holds: four warps up to W = 128, two at W = 256, so a
@@ -535,15 +573,15 @@ cudaError_t prepare(int V, size_t* smem) {
 template <int P, int C>
 cudaError_t launch(int B, int V, int L, cudaStream_t st, const int8_t* vcodes, const int* vpred,
                    const uint8_t* is_sink, const int* nv, const int8_t* q, const int* nq,
-                   const float* init_row, float* backing, float* score, int* best_sink,
-                   int* tbits, int* tape, int* tlen, int* n_backing) {
+                   const float* init_row, const int* back_off, float* backing, float* score,
+                   int* best_sink, int* tbits, int* tape, int* tlen, int* n_backing) {
   constexpr int NW = warps_per_block<C>();
   size_t smem;
   cudaError_t e = prepare<P, C>(V, &smem);
   if (e != cudaSuccess) return e;
   poa_dp_tb_kernel<P, C, NW><<<(B + NW - 1) / NW, NW * 32, smem, st>>>(
-      vcodes, vpred, is_sink, nv, q, nq, init_row, B, V, L, bitmap_words(V), backing, score,
-      best_sink, tbits, tape, tlen, n_backing);
+      vcodes, vpred, is_sink, nv, q, nq, init_row, B, V, L, bitmap_words(V), back_off, backing,
+      score, best_sink, tbits, tape, tlen, n_backing);
   return cudaGetLastError();
 }
 
@@ -583,17 +621,17 @@ cudaError_t occupancy(int V, int* out) {
 
 extern "C" int vg_poa_dp_tb(const void* vcodes, const void* vpred, const void* is_sink,
                             const void* nv, const void* q, const void* nq,
-                            const void* init_row, int B, int V, int P, int L, void* backing,
-                            void* score, void* best_sink, void* tbits, void* tape, void* tlen,
-                            void* n_backing, void* stream) {
+                            const void* init_row, int B, int V, int P, int L,
+                            const void* back_off, void* backing, void* score, void* best_sink,
+                            void* tbits, void* tape, void* tlen, void* n_backing, void* stream) {
   const int W = L + 1;
   if (B <= 0) return (int)cudaGetLastError();
   if (W % 32 != 0 || V <= 0) return (int)cudaErrorInvalidValue;
   const int C = W / 32;
   VG_TB_SWITCH(launch, B, V, L, (cudaStream_t)stream, (const int8_t*)vcodes, (const int*)vpred,
                (const uint8_t*)is_sink, (const int*)nv, (const int8_t*)q, (const int*)nq,
-               (const float*)init_row, (float*)backing, (float*)score, (int*)best_sink,
-               (int*)tbits, (int*)tape, (int*)tlen, (int*)n_backing)
+               (const float*)init_row, (const int*)back_off, (float*)backing, (float*)score,
+               (int*)best_sink, (int*)tbits, (int*)tape, (int*)tlen, (int*)n_backing)
 }
 
 // out[0..2]: problems (warps) a block holds, blocks an SM keeps resident,

@@ -17,7 +17,10 @@
 // The recurrence, the f32 operations and their order, the tie rules and
 // the 19 decision bits are poa_dp.cu's (see there); the row state plan
 // (a ring of RING rows, PINS pinned far rows, a global backing store past
-// them, counted in n_backing) and the walk are poa_dp_tb.cu's.
+// them, counted in n_backing, that holds only the rows the host counted
+// for each problem, a far vertex's row its rank among its problem's
+// unpinned far vertices, and tlen -1 for a problem given too few) and the
+// walk are poa_dp_tb.cu's.
 //
 // What bounds it on the card: the one output that must reach device
 // memory is tbits, 4 bytes a cell written once, so the least time is that
@@ -41,9 +44,10 @@
 //    C columns (one float4 a plane, thread t's at float offset t*C, free
 //    of bank conflicts), and takes the column left of its first from the
 //    lane before by shuffle.  Far predecessors past the pins come from
-//    the backing store [B, V, 3W], never zeroed, whose row every CTA
-//    writes in its own columns.  No CTA reads another's rows, so reusing
-//    a ring slot needs no order across CTAs;
+//    the backing store (back_off: each problem's first row in it; 3W
+//    floats a row, never zeroed), whose row every CTA writes in its own
+//    columns.  No CTA reads another's rows, so reusing a ring slot needs
+//    no order across CTAs;
 //  * three values of a row cross a warp boundary (and so a slice
 //    boundary), and each warp obtains them without waiting for a second
 //    barrier:
@@ -80,7 +84,10 @@
 // A CTA's state is 12 rows of 3 x S floats (72 KB at S 512, 144 KB at S
 // 1,024) plus the halo, the records (2 x 16 x WARPS float4s) and the
 // far-vertex bitmap (V / 8 bytes): 152,960 bytes at S 1,024 and V 8,192,
-// one CTA an SM, under the 227 KB a block may take.
+// one CTA an SM, under the 227 KB a block may take.  A launch's device
+// memory is tbits [B, V, W] i32 and the backing rows the host counted, so
+// a lone problem at V 8,192 x W 16,384 takes 0.54 GB and 196,608 bytes a
+// counted row.
 
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -156,13 +163,27 @@ __device__ __forceinline__ void load_meta(const int* vp_b, const int8_t* vc_b,
   }
 }
 
+// a far vertex's row in its problem's backing store: the far vertices
+// below v that are not pinned, counted by the whole warp (v is the same
+// in every lane; one bitmap word a lane up to V 1,024, then one redux.sync)
+__device__ __forceinline__ int back_rank(const unsigned* bm, int v, int lane) {
+  const int wv = v >> 5;
+  int cnt = 0;
+  for (int i = lane; i <= wv; i += 32) {
+    const unsigned m = bm[i];
+    cnt += __popc(i == wv ? m & ((1u << (v & 31)) - 1u) : m);
+  }
+  return __reduce_add_sync(FULL, cnt);
+}
+
 template <int P, int S>
 __global__ void __launch_bounds__(Slice<S>::THREADS)
     poa_dp_tb_cluster_kernel(const int8_t* __restrict__ vcodes, const int* __restrict__ vpred,
                              const uint8_t* __restrict__ is_sink, const int* __restrict__ nv,
                              const int8_t* __restrict__ q, const int* __restrict__ nq,
                              const float* __restrict__ init_row, int V, int L, int bm_words,
-                             float* __restrict__ backing, float* __restrict__ score,
+                             const int* __restrict__ back_off, float* __restrict__ backing,
+                             float* __restrict__ score,
                              int* __restrict__ best_sink, int* __restrict__ tbits,
                              int* __restrict__ tape, int* __restrict__ tlen,
                              int* __restrict__ n_backing) {
@@ -193,7 +214,6 @@ __global__ void __launch_bounds__(Slice<S>::THREADS)
   const int* vp_b = vpred + (size_t)b * V * P;
   const int8_t* vc_b = vcodes + (size_t)b * V;
   const uint8_t* sk_b = is_sink + (size_t)b * V;
-  float* bk_b = backing + (size_t)b * V * RSG;
 
   // (1) far-referenced vertices into the bitmap; the first PINS are
   // pinned.  Every CTA plans the same from vpred.
@@ -232,13 +252,17 @@ __global__ void __launch_bounds__(Slice<S>::THREADS)
       if (pin[k] >= 0) bm[pin[k] >> 5] &= ~(1u << (pin[k] & 31));
   }
   __syncthreads();
-  if (r == 0 && w == 0) {
-    int cnt = 0;
-    for (int i = lane; i < bm_words; i += 32) cnt += __popc(bm[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(FULL, cnt, off);
-    if (lane == 0) n_backing[b] = cnt;
-  }
+  int n_far = 0;  // this problem's far vertices past the pins, in every warp
+  for (int i = lane; i < bm_words; i += 32) n_far += __popc(bm[i]);
+  n_far = __reduce_add_sync(FULL, n_far);
+  if (r == 0 && t == 0) n_backing[b] = n_far;
+  // the rows the host counted for this problem; a row past them is
+  // neither written nor read, and tlen says -1
+  const int n_back = min(n_far, back_off[b + 1] - back_off[b]);
+  float* bk_b = backing + (size_t)back_off[b] * RSG;
+  // backing rows written so far: rows go out in ascending v, so this is
+  // the rank of the next one (back_rank's count for reads)
+  int n_written = 0;
 
   // (2) the lane's query codes, virtual-source row and gap slopes e*j;
   // the column left of the lane's first (lane 0's halo column); the last
@@ -325,11 +349,21 @@ __global__ void __launch_bounds__(Slice<S>::THREADS)
           load_cols(s + 2 * S, e2);
           if (lane == 0) hleft = halo[srow];
         } else {
-          const float* gr = bk_b + (size_t)pp * RSG;
-          load_cols(gr + j0, h);
-          load_cols(gr + W + j0, e1);
-          load_cols(gr + 2 * W + j0, e2);
-          if (lane == 0 && j0 >= 1) hleft = gr[j0 - 1];
+          const int rank = back_rank(bm, pp, lane);
+          if (rank < n_back) {
+            const float* gr = bk_b + (size_t)rank * RSG;
+            load_cols(gr + j0, h);
+            load_cols(gr + W + j0, e1);
+            load_cols(gr + 2 * W + j0, e2);
+            if (lane == 0 && j0 >= 1) hleft = gr[j0 - 1];
+          } else {
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              h[c] = NEGF;
+              e1[c] = NEGF;
+              e2[c] = NEGF;
+            }
+          }
         }
       } else if (pp < 0 && p == 0 && !has_any) {
         // the virtual source: H = init_row, E1 = E2 = NEGF
@@ -503,10 +537,13 @@ __global__ void __launch_bounds__(Slice<S>::THREADS)
       }
     }
     if ((bm[v >> 5] >> (v & 31)) & 1u) {
-      float* gr = bk_b + (size_t)v * RSG;
-      store_cols(gr + j0, hrow);
-      store_cols(gr + W + j0, best1);
-      store_cols(gr + 2 * W + j0, best2);
+      if (n_written < n_back) {
+        float* gr = bk_b + (size_t)n_written * RSG;
+        store_cols(gr + j0, hrow);
+        store_cols(gr + W + j0, best1);
+        store_cols(gr + 2 * W + j0, best2);
+      }
+      ++n_written;
     }
     reinterpret_cast<int4*>(tbits + ((size_t)b * V + v) * W + j0)[0] =
         make_int4(pbits[0], pbits[1], pbits[2], pbits[3]);
@@ -590,7 +627,7 @@ __global__ void __launch_bounds__(Slice<S>::THREADS)
       j = j2;
       st = st2;
     }
-    tlen[b] = n;
+    tlen[b] = n_back < n_far ? -1 : n;
   }
   n = __shfl_sync(FULL, n, wl);
   for (int i = n + lane; i < T; i += 32) tp[i] = END_FILL;
@@ -646,16 +683,16 @@ cudaError_t configure(int B, int V, int W, cudaStream_t st, cudaLaunchConfig_t* 
 template <int P, int S>
 cudaError_t launch_slice(int B, int V, int L, cudaStream_t st, const int8_t* vcodes,
                          const int* vpred, const uint8_t* is_sink, const int* nv,
-                         const int8_t* q, const int* nq, const float* init_row, float* backing,
-                         float* score, int* best_sink, int* tbits, int* tape, int* tlen,
-                         int* n_backing) {
+                         const int8_t* q, const int* nq, const float* init_row,
+                         const int* back_off, float* backing, float* score, int* best_sink,
+                         int* tbits, int* tape, int* tlen, int* n_backing) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t e = configure<P, S>(B, V, L + 1, st, &cfg, attr);
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernelEx(&cfg, poa_dp_tb_cluster_kernel<P, S>, vcodes, vpred, is_sink, nv, q,
-                         nq, init_row, V, L, bitmap_words(V), backing, score, best_sink, tbits,
-                         tape, tlen, n_backing);
+                         nq, init_row, V, L, bitmap_words(V), back_off, backing, score,
+                         best_sink, tbits, tape, tlen, n_backing);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -663,11 +700,11 @@ cudaError_t launch_slice(int B, int V, int L, cudaStream_t st, const int8_t* vco
 template <int P>
 cudaError_t launch(int B, int V, int L, cudaStream_t st, const int8_t* vcodes, const int* vpred,
                    const uint8_t* is_sink, const int* nv, const int8_t* q, const int* nq,
-                   const float* init_row, float* backing, float* score, int* best_sink,
-                   int* tbits, int* tape, int* tlen, int* n_backing) {
+                   const float* init_row, const int* back_off, float* backing, float* score,
+                   int* best_sink, int* tbits, int* tape, int* tlen, int* n_backing) {
   auto go = cta_cols(L + 1) == SLICE ? &launch_slice<P, SLICE> : &launch_slice<P, WIDE_SLICE>;
-  return go(B, V, L, st, vcodes, vpred, is_sink, nv, q, nq, init_row, backing, score, best_sink,
-            tbits, tape, tlen, n_backing);
+  return go(B, V, L, st, vcodes, vpred, is_sink, nv, q, nq, init_row, back_off, backing, score,
+            best_sink, tbits, tape, tlen, n_backing);
 }
 
 template <int P, int S>
@@ -695,14 +732,15 @@ cudaError_t occupancy(int W, int V, int* out) {
 extern "C" int vg_poa_dp_tb_cluster(const void* vcodes, const void* vpred, const void* is_sink,
                                     const void* nv, const void* q, const void* nq,
                                     const void* init_row, int B, int V, int P, int L,
-                                    void* backing, void* score, void* best_sink, void* tbits,
-                                    void* tape, void* tlen, void* n_backing, void* stream) {
+                                    const void* back_off, void* backing, void* score,
+                                    void* best_sink, void* tbits, void* tape, void* tlen,
+                                    void* n_backing, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
 #define VG_CLUSTER_LAUNCH(PP)                                                                  \
   launch<PP>(B, V, L, (cudaStream_t)stream, (const int8_t*)vcodes, (const int*)vpred,        \
              (const uint8_t*)is_sink, (const int*)nv, (const int8_t*)q, (const int*)nq,       \
-             (const float*)init_row, (float*)backing, (float*)score, (int*)best_sink,          \
-             (int*)tbits, (int*)tape, (int*)tlen, (int*)n_backing)
+             (const float*)init_row, (const int*)back_off, (float*)backing, (float*)score,      \
+             (int*)best_sink, (int*)tbits, (int*)tape, (int*)tlen, (int*)n_backing)
   switch (P) {
     case 2: return (int)VG_CLUSTER_LAUNCH(2);
     case 4: return (int)VG_CLUSTER_LAUNCH(4);

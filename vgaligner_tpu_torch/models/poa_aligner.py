@@ -48,7 +48,7 @@ from ..native import (
 )
 from ..utils.dna import encode_seq
 from ..ops.poa_device import P_MAX, _l_pad_for, _next_pow2, align_local_batch, \
-    dispatch_bucket, kernel_finish_all, padded_rows
+    dispatch_bucket, kernel_finish_all
 from ..parallel.mesh import Mesh, rank_device
 from .mapper import Chain
 
@@ -749,7 +749,8 @@ class PoaAligner:
 
     def _dispatch_chains(self, chains: List[Chain]):
         """Native extraction + problem arrays around the device POA,
-        launched per (V, L) bucket and chunk; host outliers complete here."""
+        launched per (V, L) bucket as real problems under the route's byte
+        budget (``global_chunks``); host outliers complete here."""
         n = len(chains)
         sub = self._extract(chains)
         if self.export_subgraphs and self.graph is not None:
@@ -777,12 +778,12 @@ class PoaAligner:
         edges_flat = np.ascontiguousarray(sub.edges_arr.reshape(-1), dtype=np.int64)
         pending = []
         for (v_pad, l_pad), idxs in sorted(buckets.items()):
-            # ascending V keeps each chunk's vertex loop bound tight
+            # ascending V: a launch's problems of like size share blocks
             idxs.sort(key=lambda i: int(v_per[i]))
             built = build_poa_batch_arrays(
                 sub.labels, sub.label_off, sub.handle_off.astype(np.int64),
                 sub.edge_off.astype(np.int64), edges_flat, np.asarray(idxs, dtype=np.int64),
-                v_pad, P_MAX, rows=padded_rows(len(idxs), v_pad, l_pad),
+                v_pad, P_MAX,
             )
             if built is None:
                 # fan-in above P_MAX: the host oracle (rare)

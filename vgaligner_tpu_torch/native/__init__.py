@@ -414,14 +414,11 @@ def pack_poa_wire_native(vcodes_p: np.ndarray, vpred_s: np.ndarray,
 def build_poa_batch_arrays(labels_b: bytes, label_off: np.ndarray,
                            prob_node_off: np.ndarray,
                            prob_edge_off: np.ndarray, edges_flat: np.ndarray,
-                           sel: Optional[np.ndarray], v_pad: int, p_max: int,
-                           rows: Optional[int] = None):
-    """Array-form batch subgraph -> padded POA arrays (native).
+                           sel: Optional[np.ndarray], v_pad: int, p_max: int):
+    """Array-form batch subgraph -> padded POA arrays (native), one row a
+    problem.
 
     `sel` picks problems out of the concatenated inputs (None = all).
-    `rows` (>= B) allocates extra zeroed batch rows so downstream
-    chunking can slice ladder-padded views without copying (calloc'd
-    zero rows are valid throwaway problems for the device kernel).
     Returns None when a selected problem exceeds v_pad or fan-in p_max.
     """
     lib = get_lib()
@@ -429,13 +426,12 @@ def build_poa_batch_arrays(labels_b: bytes, label_off: np.ndarray,
     B = len(prob_node_off) - 1 if sel is None else len(sel)
     sel_c = None if sel is None else np.ascontiguousarray(sel, dtype=np.int64)
 
-    R = max(rows or B, B)
-    vcodes = np.zeros((R, v_pad), dtype=np.int8)
-    vpred = np.zeros((R, v_pad, p_max), dtype=np.int32)
-    is_sink = np.zeros((R, v_pad), dtype=np.uint8)
-    nv = np.zeros(R, dtype=np.int32)
-    node_of = np.zeros((R, v_pad), dtype=np.int32)
-    off_in = np.zeros((R, v_pad), dtype=np.int32)
+    vcodes = np.zeros((B, v_pad), dtype=np.int8)
+    vpred = np.zeros((B, v_pad, p_max), dtype=np.int32)
+    is_sink = np.zeros((B, v_pad), dtype=np.uint8)
+    nv = np.zeros(B, dtype=np.int32)
+    node_of = np.zeros((B, v_pad), dtype=np.int32)
+    off_in = np.zeros((B, v_pad), dtype=np.int32)
     rc = lib.vg_build_poa_batch(
         B, None if sel_c is None else _p64(sel_c), labels_b,
         _p64(label_off), _p64(prob_node_off),
@@ -448,8 +444,7 @@ def build_poa_batch_arrays(labels_b: bytes, label_off: np.ndarray,
     return vcodes, vpred, is_sink, nv, node_of, off_in
 
 
-def build_poa_batch_native(problems, v_pad: int, p_max: int,
-                           rows: Optional[int] = None):
+def build_poa_batch_native(problems, v_pad: int, p_max: int):
     """Batch (nodes, edges) subgraphs -> padded POA arrays.
 
     problems: list of (node_labels: List[str], edges: List[(a, b)]).
@@ -482,7 +477,7 @@ def build_poa_batch_native(problems, v_pad: int, p_max: int,
     labels_b = "".join(labels_parts).encode("ascii")
     return build_poa_batch_arrays(
         labels_b, label_off, prob_node_off, prob_edge_off, edges_flat,
-        None, v_pad, p_max, rows=rows,
+        None, v_pad, p_max,
     )
 
 

@@ -4,9 +4,11 @@ dispatch/finish code around them.
 Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
 
   * global (abPOA): problem arrays come from the native builder; each
-    ladder-padded chunk runs the POA DP and its traceback.  Rows of up to
-    256 columns (reads up to 255 bp) take ``poa_dp_tb``, one CUDA kernel
-    for both, one warp a problem (kernels/csrc/poa_dp_tb.cu); rows of
+    (V, L) bucket is cut into launches of real problems under a
+    device-byte budget (``global_chunks``), each of which runs the POA DP
+    and its traceback.  Rows of up to 256 columns (reads up to 255 bp)
+    take ``poa_dp_tb``, one CUDA kernel for both, one warp a problem
+    (kernels/csrc/poa_dp_tb.cu); rows of
     512-16,384 columns take ``poa_dp_tb_cluster``, one kernel for both,
     one thread-block cluster a problem (kernels/csrc/poa_dp_tb_cluster.cu);
     a row of another width is padded on the right to the next of those
@@ -14,13 +16,13 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     ``poa_traceback`` (kernels/csrc/poa_traceback.cu), the first ports,
     stay callable at any width up to 16,384, but no route launches them.
     On the CPU every route runs the plain twins ``poa_dp_plain`` and
-    ``poa_traceback_plain``.  Each chunk's tape comes back sliced to its
+    ``poa_traceback_plain``.  Each launch's tape comes back sliced to its
     longest walk and the native runtime decodes it into cigar/cs/node
     paths.  ``poa_global_kernel``
     runs the same DP under the lane-padded contract of the JAX package's
     Pallas kernel ``poa_dp_pallas``.  ``align_global_batch`` takes
     (nodes, edges, query) problems and runs them through the same
-    builder, chunks and kernels (the batch entry point that needs no
+    builder, launches and kernels (the batch entry point that needs no
     native extractor).
   * local gapless (rspoa): ``align_local_batch`` builds problems with
     ``prepare_problem``, cuts each (V, L) bucket into launches of real
@@ -92,76 +94,17 @@ def _l_pad_for(n: int) -> int:
     return p - 1
 
 
-# batch-dim pads: one of a few shapes per chunk
-_B_LADDER = (8, 32, 128, 256, 512, 1024)
-# per-chunk device-memory budget: tbits, the [V+1, 3W] f32 state and
-# temporaries come to about 7 [V, W] planes of 4 bytes per problem
-_HBM_BUDGET = 6 << 30
-
-
-def _b_chunk_for(v_pad: int, l_pad: int) -> int:
-    per_problem = v_pad * (l_pad + 1) * 4 * 7
-    b = _HBM_BUDGET // max(per_problem, 1)
-    if v_pad >= 2048:
-        # the vertex loop runs to each chunk's max nv; smaller V-sorted
-        # chunks keep that bound tight on widely spread big-V buckets
-        b = min(b, 128)
-    for cand in reversed(_B_LADDER):
-        if cand <= b:
-            return cand
-    return _B_LADDER[0]
-
-
-def _b_pad_for(n: int) -> int:
-    for b in _B_LADDER:
-        if n <= b:
-            return b
-    return _next_pow2(n)
-
-
-def padded_rows(n: int, v_pad: int, l_pad: int) -> int:
-    """Rows the problem builder allocates so every chunk (the last one
-    ladder-padded) is a view; the extra rows are zeroed throwaways."""
-    if n <= 0:
-        return n
-    b_chunk = _b_chunk_for(v_pad, l_pad)
-    s_last = (n - 1) // b_chunk * b_chunk
-    return s_last + _b_pad_for(n - s_last)
-
-
-def _iter_chunks(built, qs, v_pad: int, l_pad: int):
-    """Yield (chunk arrays, chunk queries) in ladder-sized chunks."""
-    vcodes = built[0]
-    n = len(qs)
-    b_chunk = _b_chunk_for(v_pad, l_pad)
-    for s in range(0, n, b_chunk):
-        e = min(s + b_chunk, n)
-        b_pad = _b_pad_for(e - s)
-        if vcodes.shape[0] >= s + b_pad:
-            chunk = tuple(a[s : s + b_pad] for a in built)
-        else:
-            def zpad(a):
-                out = np.zeros((b_pad,) + a.shape[1:], dtype=a.dtype)
-                out[: e - s] = a[s:e]
-                return out
-
-            chunk = tuple(zpad(a) for a in built)
-        yield chunk, qs[s:e]
-
-
-def _pad_queries(qs, b_pad: int, l_pad: int):
-    """Ladder-padded query codes + lengths for one chunk."""
-    n_real = len(qs)
-    q_pad = np.full((b_pad, l_pad), 4, dtype=np.int8)
-    nq = np.zeros(b_pad, dtype=np.int32)
+def _pad_queries(qs, l_pad: int):
+    """Query codes padded to l_pad with code 4, and their lengths, for
+    one launch."""
+    q_pad = np.full((len(qs), l_pad), 4, dtype=np.int8)
     lens = [len(qc) for qc in qs]
-    nq[:n_real] = lens
-    if n_real and min(lens) == max(lens):
-        q_pad[:n_real, : lens[0]] = qs
+    if qs and min(lens) == max(lens):
+        q_pad[:, : lens[0]] = qs
     else:
         for i, qc in enumerate(qs):
             q_pad[i, : len(qc)] = qc
-    return q_pad, nq
+    return q_pad, np.asarray(lens, dtype=np.int32)
 
 
 def make_init_row(l_pad: int) -> np.ndarray:
@@ -458,6 +401,22 @@ def backing_rows_plain(vpred, nv, ring: int = TB_RING, pins: int = TB_PINS):
     return (far_vertices_plain(vpred, nv, ring) - pins).clamp_min(0).to(torch.int32)
 
 
+def _back_offsets(vpred, nv, back_rows, ring: int = LOCAL_RING,
+                  pins: int = LOCAL_PINS) -> np.ndarray:
+    """[B + 1] int32 first backing row of each problem (and the total)
+    for a kernel that sizes its backing store by counted rows
+    (``poa_dp_tb``, ``poa_dp_tb_cluster``, ``poa_local_cluster``);
+    ``back_rows`` is the host's count per problem, or None to count here
+    at ``ring`` and ``pins`` (which waits for the device)."""
+    if back_rows is None:
+        back_rows = backing_rows_plain(vpred, nv, ring, pins).cpu().numpy()
+    off = np.zeros(len(back_rows) + 1, dtype=np.int64)
+    np.cumsum(np.asarray(back_rows, dtype=np.int64), out=off[1:])
+    if off[-1] >= 1 << 31:
+        raise ValueError("over 2^31 backing rows in one launch")
+    return off.astype(np.int32)
+
+
 def _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row):
     """The fused kernels' CPU route: ``poa_dp_plain``, then
     ``poa_traceback_plain``, and the backing rows of their plan."""
@@ -466,40 +425,53 @@ def _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row):
     return score, best_sink, tbits, tape, tlen, backing_rows_plain(vpred, nv)
 
 
-def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row):
+def _dp_tb_buffers(vcodes, vpred, nv, W: int, back_rows):
+    """The fused kernels' device buffers for a batch of rows of W columns:
+    back_off [B + 1] (``_back_offsets`` at TB_RING, TB_PINS), the backing
+    store [its rows, 3W] f32 (never zeroed: only the host-counted rows
+    exist, and a row is read only after it is written), score, best_sink,
+    tbits [B, V, W], tape [B, V + W + 1], tlen and n_backing."""
+    B, V = vcodes.shape
+    dev = vcodes.device
+    off = _back_offsets(vpred, nv, back_rows, TB_RING, TB_PINS)
+    i32 = torch.int32
+    # pinned and non-blocking: a copy from pageable memory would wait for
+    # the stream, so a launch given its counts would wait for the last one
+    return (torch.from_numpy(off).pin_memory().to(dev, non_blocking=True),
+            torch.empty((max(int(off[-1]), 1), 3 * W), dtype=torch.float32, device=dev),
+            torch.empty(B, dtype=torch.float32, device=dev), torch.empty(B, dtype=i32, device=dev),
+            torch.empty((B, V, W), dtype=i32, device=dev),
+            torch.empty((B, V + W + 1), dtype=i32, device=dev),
+            torch.empty(B, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev))
+
+
+def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row, back_rows=None):
     """POA DP and traceback: one CUDA kernel for CUDA tensors (rows of W
     = L + 1 in TB_WIDTHS), ``poa_dp_plain`` then ``poa_traceback_plain``
-    for CPU tensors.  Same arguments as ``poa_dp`` -> (score, best_sink,
-    tbits, tape, tlen, n_backing): the first five as the two twins give
-    them (tbits rows at or past nv unspecified), and n_backing [B] int32
-    the rows each problem kept in the kernel's backing store
-    (``backing_rows_plain``)."""
+    for CPU tensors.  Same arguments as ``poa_dp``, plus ``back_rows``
+    (the host's ``backing_rows_plain`` per problem, which sizes the
+    backing store; None counts them here) -> (score, best_sink, tbits,
+    tape, tlen, n_backing): the first five as the two twins give them
+    (tbits rows at or past nv unspecified), except tlen -1 for a problem
+    that needs more backing rows than ``back_rows`` gave it, and
+    n_backing [B] int32 the rows each problem kept in the kernel's
+    backing store (``backing_rows_plain``)."""
     if vcodes.device.type == "cpu":
         return _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
     B, V, P, L = _check_dp_inputs("poa_dp_tb", vcodes, vpred, is_sink, nv, q, nq, init_row)
     W = L + 1
     if W not in TB_WIDTHS:
         raise ValueError(f"poa_dp_tb: unsupported row width W={W} {TB_WIDTHS}")
-    dev = vcodes.device
-    # never zeroed; only the rows of n_backing are written and read
-    backing = torch.empty((B, V, 3 * W), dtype=torch.float32, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    best_sink = torch.empty(B, dtype=torch.int32, device=dev)
-    tbits = torch.empty((B, V, W), dtype=torch.int32, device=dev)
-    tape = torch.empty((B, V + W + 1), dtype=torch.int32, device=dev)
-    tlen = torch.empty(B, dtype=torch.int32, device=dev)
-    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    bufs = _dp_tb_buffers(vcodes, vpred, nv, W, back_rows)
     so = kernels.lib()
     kernels.LAUNCHES["poa_dp_tb"] += 1
     kernels.check(
         so.vg_poa_dp_tb(vcodes.data_ptr(), vpred.data_ptr(), is_sink.data_ptr(), nv.data_ptr(),
                         q.data_ptr(), nq.data_ptr(), init_row.data_ptr(), B, V, P, L,
-                        backing.data_ptr(), score.data_ptr(), best_sink.data_ptr(),
-                        tbits.data_ptr(), tape.data_ptr(), tlen.data_ptr(),
-                        n_backing.data_ptr(), kernels.stream_ptr(dev)),
+                        *(x.data_ptr() for x in bufs), kernels.stream_ptr(vcodes.device)),
         "poa_dp_tb",
     )
-    return score, best_sink, tbits, tape, tlen, n_backing
+    return bufs[2:]
 
 
 def poa_dp_tb_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
@@ -524,17 +496,17 @@ CLUSTER_SLICE = {512: 512, 1024: 512, 2048: 512, 4096: 512, 8192: 512, 16384: 10
 CLUSTER_WIDTHS = tuple(CLUSTER_SLICE)
 
 
-def poa_dp_tb_cluster(vcodes, vpred, is_sink, nv, q, nq, init_row):
+def poa_dp_tb_cluster(vcodes, vpred, is_sink, nv, q, nq, init_row, back_rows=None):
     """POA DP and traceback: one CUDA kernel, one thread-block cluster of
     W / CLUSTER_SLICE[W] CTAs a problem, for CUDA tensors (rows of W = L +
     1 in CLUSTER_WIDTHS), the plain pair for CPU tensors.  Same arguments
-    and outputs as ``poa_dp_tb`` (n_backing at its ring and pins).  Raises
-    where the card cannot keep one cluster of this shape resident.
+    and outputs as ``poa_dp_tb`` (``back_rows`` and n_backing at its ring
+    and pins, tlen -1 for a problem short of backing rows).  Raises where
+    the card cannot keep one cluster of this shape resident.
 
-    Device memory at the widest shape: the backing store [B, V, 3W] f32,
-    allocated whole and never zeroed, is 1.61 GB a problem at V 8,192 x
-    W 16,384 and tbits 0.54 GB, so ``_b_chunk_for``'s chunk of 8 such
-    problems takes 17.2 GB."""
+    Device memory at the widest shape: tbits is 0.54 GB a problem at V
+    8,192 x W 16,384, and the backing store holds only the host-counted
+    rows, 196,608 bytes each there (``global_problem_bytes``)."""
     if vcodes.device.type == "cpu":
         return _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
     B, V, P, L = _check_dp_inputs("poa_dp_tb_cluster", vcodes, vpred, is_sink, nv, q, nq,
@@ -547,26 +519,17 @@ def poa_dp_tb_cluster(vcodes, vpred, is_sink, nv, q, nq, init_row):
         raise RuntimeError(f"poa_dp_tb_cluster: no cluster of {ctas} CTAs of "
                            f"{CLUSTER_SLICE[W]} columns with {smem} B of shared memory each "
                            f"can be resident (P={P}, W={W}, V={V})")
-    dev = vcodes.device
-    # never zeroed; only the rows of n_backing are written and read
-    backing = torch.empty((B, V, 3 * W), dtype=torch.float32, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    best_sink = torch.empty(B, dtype=torch.int32, device=dev)
-    tbits = torch.empty((B, V, W), dtype=torch.int32, device=dev)
-    tape = torch.empty((B, V + W + 1), dtype=torch.int32, device=dev)
-    tlen = torch.empty(B, dtype=torch.int32, device=dev)
-    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    bufs = _dp_tb_buffers(vcodes, vpred, nv, W, back_rows)
     so = kernels.lib()
     kernels.LAUNCHES["poa_dp_tb_cluster"] += 1
     kernels.check(
         so.vg_poa_dp_tb_cluster(vcodes.data_ptr(), vpred.data_ptr(), is_sink.data_ptr(),
                                 nv.data_ptr(), q.data_ptr(), nq.data_ptr(), init_row.data_ptr(),
-                                B, V, P, L, backing.data_ptr(), score.data_ptr(),
-                                best_sink.data_ptr(), tbits.data_ptr(), tape.data_ptr(),
-                                tlen.data_ptr(), n_backing.data_ptr(), kernels.stream_ptr(dev)),
+                                B, V, P, L, *(x.data_ptr() for x in bufs),
+                                kernels.stream_ptr(vcodes.device)),
         "poa_dp_tb_cluster",
     )
-    return score, best_sink, tbits, tape, tlen, n_backing
+    return bufs[2:]
 
 
 @functools.lru_cache(maxsize=None)
@@ -622,19 +585,21 @@ def pad_row(q, init_row, W: int):
     return q_w, init_w
 
 
-def dp_and_traceback(vcodes, vpred, is_sink, nv, q, nq, init_row):
+def dp_and_traceback(vcodes, vpred, is_sink, nv, q, nq, init_row, back_rows=None):
     """(score, tape [B, V+W+1], tlen) of one batch, W = L + 1: ``poa_dp_tb``
     for rows of W in TB_WIDTHS, ``poa_dp_tb_cluster`` for W in
-    CLUSTER_WIDTHS; a row of another width up to 16,384 is padded on the
-    right to the next of those widths (``pad_row``, exact) and its tape
-    cut back to V + W + 1 entries (the walk takes at most V + nq + 1
-    steps).  ``poa_dp`` and ``poa_traceback`` are launched at no width."""
+    CLUSTER_WIDTHS, each given ``back_rows``; a row of another width up
+    to 16,384 is padded on the right to the next of those widths
+    (``pad_row``, exact) and its tape cut back to V + W + 1 entries (the
+    walk takes at most V + nq + 1 steps).  ``poa_dp`` and
+    ``poa_traceback`` are launched at no width."""
     V, W = vcodes.shape[1], q.shape[1] + 1
     kernel, w = global_route(W)
     if w != W:
         q, init_row = pad_row(q, init_row, w)
     fused = poa_dp_tb if kernel == "poa_dp_tb" else poa_dp_tb_cluster
-    score, _sink, _tbits, tape, tlen, _nb = fused(vcodes, vpred, is_sink, nv, q, nq, init_row)
+    score, _sink, _tbits, tape, tlen, _nb = fused(vcodes, vpred, is_sink, nv, q, nq, init_row,
+                                                  back_rows)
     return score, tape[:, : V + W + 1], tlen
 
 
@@ -661,33 +626,75 @@ def lane_pad(q, init_row):
 
 
 # ---------------------------------------------------------------------------
-# dispatch / finish
+# the global route's launch plan, dispatch and finish
 
-def kernel_dispatch(chunk, qs, v_pad: int, l_pad: int, device: torch.device):
-    """Launch DP + traceback (``dp_and_traceback``) on one ladder-padded
-    chunk without waiting for the device.  Returns the pending state for ``kernel_finish_all``."""
+# per-launch device-memory budget of the global POA route
+_HBM_BUDGET = 6 << 30
+
+
+def global_problem_bytes(V: int, W: int, P: int, back_rows) -> np.ndarray:
+    """Device bytes one global POA problem of a (V, W) batch takes on the
+    route ``global_route(W)`` picks (row width w), per problem of
+    ``back_rows`` (its host-counted backing rows): the inputs (codes, sink
+    flags and P predecessor ids a vertex, the query, nv, nq and its
+    backing offset), tbits V x w i32, the tape V + w + 1 i32, the scalars
+    (score, best sink, tlen, n_backing), 3w f32 a backing row, and the
+    query right-padded to w - 1 columns where w != W."""
+    _kernel, w = global_route(W)
+    fixed = V * (2 + 4 * P) + (W - 1) + 12 + 4 * V * w + 4 * (V + w + 1) + 16
+    if w != W:
+        fixed += w - 1
+    return fixed + 12 * w * np.asarray(back_rows, dtype=np.int64)
+
+
+def global_chunks(built, v_pad: int, l_pad: int, budget: int = None):
+    """One (V, L) bucket of native-builder arrays (a row a problem) as
+    launches of real problems only, in order, each under ``budget``
+    device bytes (``_HBM_BUDGET``; a problem over it runs alone): yields
+    (start, end, the arrays of problems [start, end), back_rows), vpred
+    sliced to the bucket's fan-in and back_rows the host's backing-row
+    count per problem (``backing_rows_plain`` at TB_RING, TB_PINS)."""
+    budget = _HBM_BUDGET if budget is None else budget
+    n = len(built[0])
+    vpred = _slice_preds(built[1])
+    back = backing_rows_plain(torch.from_numpy(vpred), torch.from_numpy(built[3]),
+                              TB_RING, TB_PINS).numpy().astype(np.int64)
+    cost = np.cumsum(global_problem_bytes(v_pad, l_pad + 1, vpred.shape[-1], back))
+    s = 0
+    while s < n:
+        base = cost[s - 1] if s else 0
+        e = max(s + 1, int(np.searchsorted(cost, base + budget, side="right")))
+        yield s, e, tuple(a[s:e] for a in (built[0], vpred, *built[2:])), back[s:e]
+        s = e
+
+
+def kernel_dispatch(chunk, qs, v_pad: int, l_pad: int, device: torch.device, back_rows):
+    """Launch DP + traceback (``dp_and_traceback``) on one launch of real
+    problems, with the host's backing-row counts, without waiting for the
+    device.  Returns the pending state for ``kernel_finish_all``."""
     vcodes, vpred, is_sink, nv, node_of, off_in = chunk
-    n_real = len(qs)
-    b_pad = vcodes.shape[0]
-    q_pad, nq = _pad_queries(qs, b_pad, l_pad)
+    q_pad, nq = _pad_queries(qs, l_pad)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     out = dp_and_traceback(
-        t(vcodes.astype(np.int8, copy=False)), t(_slice_preds(vpred, n_real).astype(np.int32)),
+        t(vcodes.astype(np.int8, copy=False)), t(_slice_preds(vpred).astype(np.int32)),
         t(is_sink.astype(np.uint8, copy=False)), t(nv.astype(np.int32, copy=False)),
-        t(q_pad), t(nq), t(make_init_row(l_pad)),
+        t(q_pad), t(nq), t(make_init_row(l_pad)), back_rows=back_rows,
     )
-    return out, vcodes, node_of, off_in, q_pad, v_pad, n_real, qs
+    return out, vcodes, node_of, off_in, q_pad, v_pad, qs
 
 
 def kernel_finish_all(pendings) -> List:
-    """Drain dispatched chunks (scores and lengths, then each tape sliced
-    to its longest walk) and decode them into PoaResults, in order."""
+    """Drain dispatched launches (scores and lengths, then each tape
+    sliced to its longest walk) and decode them into PoaResults, in
+    order.  Raises on a tlen of -1 (a problem short of backing rows)."""
     out: List = []
     for p in pendings:
         score, tape, tlen = p[0]
-        n_real = p[6]
         tlen_h = tlen.cpu().numpy()
-        used = max(1, int(tlen_h[:n_real].max()) if n_real else 1)
+        if (tlen_h < 0).any():
+            raise RuntimeError("global POA: a problem needs more backing rows than the host "
+                               "counted")
+        used = max(1, int(tlen_h.max()))
         out.extend(_decode_finished(
             p, (score.cpu().numpy(), tape[:, :used].cpu().numpy(), tlen_h)
         ))
@@ -698,14 +705,14 @@ def _decode_finished(pending, fetched):
     from .poa import PoaResult
 
     require_native()
-    _d, vcodes, node_of, off_in, q_pad, v_pad, n_real, qs = pending
+    _d, vcodes, node_of, off_in, q_pad, v_pad, qs = pending
+    n_real = len(qs)
     scores, tape, tlens = fetched
     ops, vids = unpack_tape(tape)
     bg_off = np.arange(n_real + 1, dtype=np.int64) * v_pad
     cigars, css, node_paths, path_vertices, scalars = finish_tapes_native(
-        ops[:n_real], vids[:n_real], tlens[:n_real].astype(np.int32),
-        bg_off, vcodes[:n_real].reshape(-1), node_of[:n_real].reshape(-1),
-        off_in[:n_real].reshape(-1), q_pad[:n_real],
+        ops, vids, tlens.astype(np.int32), bg_off, vcodes.reshape(-1), node_of.reshape(-1),
+        off_in.reshape(-1), q_pad,
     )
     return [
         PoaResult(
@@ -721,9 +728,9 @@ def _decode_finished(pending, fetched):
 
 
 def dispatch_bucket(built, qs, v_pad: int, l_pad: int, device: torch.device) -> list:
-    """Dispatch every chunk of one (v_pad, l_pad) bucket."""
-    return [kernel_dispatch(chunk, cqs, v_pad, l_pad, device)
-            for chunk, cqs in _iter_chunks(built, qs, v_pad, l_pad)]
+    """Dispatch every launch of one (v_pad, l_pad) bucket (``global_chunks``)."""
+    return [kernel_dispatch(chunk, qs[s:e], v_pad, l_pad, device, back)
+            for s, e, chunk, back in global_chunks(built, v_pad, l_pad)]
 
 
 def align_global_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[int, int]], str]],
@@ -732,8 +739,9 @@ def align_global_batch(problems: Sequence[Tuple[Sequence[str], Sequence[Tuple[in
     ``device`` (the card when None; without one ``resolve_device`` raises
     RuntimeError): a list of PoaResults equal to ``align_global_host`` on
     each problem.  Problems are bucketed by (pow2 V >= 256, query ladder),
-    built by the native builder and run chunk by chunk through
-    ``dispatch_bucket``; subgraphs above 8,192 base vertices go to the
+    built by the native builder and run launch by launch through
+    ``dispatch_bucket`` (real problems under ``_HBM_BUDGET`` bytes a
+    launch, ``global_chunks``); subgraphs above 8,192 base vertices go to the
     native host POA.  A bucket the builder refuses (a vertex fan-in above
     P_MAX) takes ``_align_bucket``, which raises ValueError there, as the
     JAX package's does.  Equal to the JAX package's ``align_global_batch``."""
@@ -768,8 +776,7 @@ def _align_bucket_native(node_edge_probs, qs, v_pad: int, l_pad: int, device: to
     kernels; None where a problem exceeds the pads (fan-in above P_MAX)."""
     from ..native import build_poa_batch_native
 
-    built = build_poa_batch_native(node_edge_probs, v_pad, P_MAX,
-                                   rows=padded_rows(len(node_edge_probs), v_pad, l_pad))
+    built = build_poa_batch_native(node_edge_probs, v_pad, P_MAX)
     if built is None:
         return None
     return kernel_and_finish(built, qs, v_pad, l_pad, device)
@@ -1051,19 +1058,6 @@ def poa_local_warp_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
     kernels.check(kernels.lib().vg_poa_local_warp_occupancy(P, W, V, ctypes.addressof(out)),
                   "poa_local_warp_occupancy")
     return out[0], out[1], out[2]
-
-
-def _back_offsets(vpred, nv, back_rows) -> np.ndarray:
-    """[B + 1] int32 first backing row of each problem (and the total)
-    for ``poa_local_cluster``; ``back_rows`` is the host's count per
-    problem, or None to count here (which waits for the device)."""
-    if back_rows is None:
-        back_rows = backing_rows_plain(vpred, nv, LOCAL_RING, LOCAL_PINS).cpu().numpy()
-    off = np.zeros(len(back_rows) + 1, dtype=np.int64)
-    np.cumsum(np.asarray(back_rows, dtype=np.int64), out=off[1:])
-    if off[-1] >= 1 << 31:
-        raise ValueError("poa_local_cluster: over 2^31 backing rows in one launch")
-    return off.astype(np.int32)
 
 
 def poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows=None):

@@ -10,11 +10,14 @@ on the CPU and builds the POA problem batches exactly as the CLI does,
 without running the DP; ``--reads`` takes the first N of them (12,288
 and 65 by default):
 
-  * ``--engine abpoa`` (``map -p abpoa -D``, fast chaining): the chunks
-    ``kernel_dispatch`` receives, which the fused DP + traceback kernels
-    run (poa_dp_tb.cu up to 256 columns, poa_dp_tb_cluster.cu at
-    512-8,192; a subgraph over 8,192 vertices takes the host POA and is
-    in no chunk);
+  * ``--engine abpoa`` (``map -p abpoa -D``, fast chaining): the
+    launches ``kernel_dispatch`` receives, the real problems of each (V,
+    L) bucket of each stream batch of 8,192 reads cut into launches under
+    the route's byte budget (``global_chunks``), which the fused DP +
+    traceback kernels run (poa_dp_tb.cu up to 256 columns,
+    poa_dp_tb_cluster.cu at 512-16,384; a subgraph over 8,192 vertices
+    takes the host POA and is in no launch), each with its device bytes
+    (``global_problem_bytes``);
   * ``--engine rspoa`` (``map -p rspoa -D``, exact chaining): the local
     POA launches ``_dispatch_local_bucket`` makes, the real problems of
     each (V, L) bucket of each stream batch of 8,192 reads cut into
@@ -87,15 +90,18 @@ def _record_batches(engine: str, index, chains, batch: int, chunks: list) -> Non
     if engine == "abpoa":
         real = PD.kernel_dispatch
 
-        def record(chunk, qs, v_pad, l_pad, device):
+        def record(chunk, qs, v_pad, l_pad, device, back_rows):
             vcodes, vpred, _sink, nv, _node_of, _off_in = chunk
-            vp = PD._slice_preds(vpred, len(qs))
+            vp = PD._slice_preds(vpred)
+            nbytes = PD.global_problem_bytes(v_pad, l_pad + 1, vp.shape[-1], back_rows)
             chunks.append(dict(chunk_stats(vp, nv, len(qs), PD.TB_RING, PD.TB_PINS),
-                               W=l_pad + 1, B=vcodes.shape[0]))
+                               W=l_pad + 1, B=vcodes.shape[0], bytes=int(nbytes.sum())))
 
         PD.kernel_dispatch = record
         try:
-            PoaAligner(index, cpu).begin_alignments(chains, 1)
+            aligner = PoaAligner(index, cpu)
+            for s in range(0, len(chains), batch):
+                aligner.begin_alignments(chains[s : s + batch], 1)
         finally:
             PD.kernel_dispatch = real
         return
@@ -176,7 +182,9 @@ def main(argv=None) -> dict:
         "backing_rows": sum(c["backing_rows_sum"] for c in chunks),
     }
     for c in chunks:
-        print(f"[chunk] B {c['B']} V {c['V']} W {c['W']} P {c['P']}: {c['problems']} problems, "
+        nbytes = f", {c['bytes']} device bytes" if "bytes" in c else ""
+        print(f"[chunk] B {c['B']} V {c['V']} W {c['W']} P {c['P']}{nbytes}: "
+              f"{c['problems']} problems, "
               f"nv mean {c['nv_sum'] / c['problems']:.1f} max {c['nv_max']}, far vertices "
               f"(ring 8) max {c['far8_max']} sum {c['far8_sum']}, (ring 16) max "
               f"{c['far16_max']}, {c['backing_problems']} over the pins (backing rows sum "

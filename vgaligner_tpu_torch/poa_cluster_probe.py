@@ -124,10 +124,14 @@ def _launcher(so, t, init):
 
     from . import kernels
 
+    from .ops import poa_device as PD
+
     B, V = t[0].shape
     P, L = t[1].shape[-1], t[4].shape[1]
     W, dev = L + 1, t[0].device
-    outs = [torch.empty((B, V, 3 * W), dtype=torch.float32, device=dev),
+    off = PD._back_offsets(t[1], t[3], None, PD.TB_RING, PD.TB_PINS)
+    outs = [torch.from_numpy(off).to(dev),
+            torch.empty((max(int(off[-1]), 1), 3 * W), dtype=torch.float32, device=dev),
             torch.empty(B, dtype=torch.float32, device=dev),
             torch.empty(B, dtype=torch.int32, device=dev),
             torch.empty((B, V, W), dtype=torch.int32, device=dev),
@@ -174,7 +178,7 @@ def main(argv=None) -> dict:
         libs = _build(variant_sources(fh.read()), os.path.join(BUILD_DIR, "probe"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for so, _regs in libs.values():
-        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        so.vg_poa_dp_tb_cluster.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 9
         so.vg_poa_dp_tb_cluster.restype = ci
     args_ = _largest_long_chunk(dev)
     t, init = list(args_[:6]), args_[6]
@@ -194,7 +198,7 @@ def main(argv=None) -> dict:
           f"{out['walk_steps_mean']:.1f} max {out['walk_steps_max']} ({card})")
     calls = {}
     for name, (so, regs) in libs.items():
-        call, (_bk, score, sink, tbits, tape, tlen, _nb) = _launcher(so, t, init)
+        call, (_off, _bk, score, sink, tbits, tape, tlen, _nb) = _launcher(so, t, init)
         call()
         torch.cuda.synchronize()
         same = torch.equal(tbits[below_nv], wtb[below_nv])
