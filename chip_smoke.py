@@ -57,7 +57,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
        A = 16,384 and 65,536, then both of its paths (one divide a row;
        one a pair, which a gap table with a negative entry or with scores
        past its 2^41 bound takes) on the real anchors and on reads whose
-       valid anchors are scattered, timed at 4,096 x 256 beside K1;
+       valid anchors are scattered, timed at 4,096 x 256 beside K1; its
+       ptxas registers and spills, shared memory a block and reads
+       resident an SM beside that launch (and beside the long reads'
+       launch, below);
   4. the main path through the CLI entry points: ``index -k 11`` and
      ``map -p abpoa -D -G --precision auto`` over 12,288 100 bp reads of
      a seeded HLA-scale synthetic graph (4,760 nodes, 12 haplotypes),
@@ -410,6 +413,7 @@ def phase_chain_kernels(index, reads, dev, results):
     print(f"[kernels] the longest read alone, kernels alone ({int(last[b])} rows to its last "
           f"valid anchor): K5 {one_x:.4f} ms ({one_x * 1e3 / int(last[b]):.3f} us a row), K1 "
           f"{one_k1:.4f} ms ({A} rows, {one_k1 * 1e3 / A:.3f} us a row)")
+    _k5_residency("the main launch", main[0].shape[0], dev)
     results["chain_dp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                                **_bound_keys(*_chain_work(fa, False), F32_OPS_PER_S))
     results["chain_dp_exact"] = dict(max_abs_err=max(errs_x), ms=ms_x, plain_ms=plain_x,
@@ -510,6 +514,25 @@ def _exact_paths(main, table, errs, dev):
           f"the bound, max |curr_max| {float(want[2].abs().max()):.4g}) on the main anchors and "
           f"on scattered valid anchors: f/pred/curr_max equal bit for bit; rows to the last "
           f"valid anchor: mean {float(last.float().mean()):.2f} of {A}")
+
+
+def _k5_residency(label, B, dev):
+    """K5's ptxas report of each instance, and its residency on this
+    card beside a launch of B reads."""
+    import torch
+
+    from vgaligner_tpu_torch import kernels
+    from vgaligner_tpu_torch.ops import chain as C
+
+    regs = _ptxas(kernels.build_log, "chain_dp_exact_kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = C.chain_dp_exact_occupancy(50)
+    per_sm = occ["blocks_an_sm"] * occ["reads_a_block"]
+    print(f"[kernels] K5 ptxas (DIV_ONCE: registers, spill store/load bytes): " + "; ".join(
+        f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs) + f"; {occ['reads_a_block']} reads "
+        f"(two warps each) a block, {occ['smem']} B shared memory a block, "
+        f"{occ['blocks_an_sm']} blocks an SM: {per_sm} reads resident an SM, {per_sm * sms} on "
+        f"the card, against {B} reads at {label} ({-(-B // (per_sm * sms))} wave(s))")
 
 
 def phase_poa_kernels(dev, results):
@@ -1387,7 +1410,8 @@ def _keep_largest(module, name, work, captured):
 def _long_chain_launch(label, args, exact, card):
     """The chaining kernel (K5 with ``exact``, else K1) on the launch the
     long-read run gave it: held against its plain twin and timed through
-    its wrapper; the rows each read has to its last valid anchor."""
+    its wrapper (K5: and its residency there); the rows each read has to
+    its last valid anchor."""
     import torch
 
     from vgaligner_tpu_torch.ops import chain as C
@@ -1397,6 +1421,8 @@ def _long_chain_launch(label, args, exact, card):
     errs = []
     _check_equal(f"{label} on the long reads' launch", ("f", "pred", "curr_max"), fn(*args),
                  plain(*args), errs)
+    if exact:
+        _k5_residency("the long launch", args[0].shape[0], args[0].device)
     ms = _cuda_ms(lambda: fn(*args), 10)
     bound = _bound_keys(*_chain_work(args[:4], exact), F64_OPS_PER_S if exact else F32_OPS_PER_S)
     B, A = args[0].shape

@@ -1,18 +1,28 @@
 """The exact (f64) chaining kernel's row rule, checked on the CPU.
 
 kernels/csrc/chain_dp_exact.cu stops each read after its last valid
-anchor, lets the 32 lanes of a warp take the pairs of a row, compares
-rr (the rounded milli-unit score before its divide by 1000) with the
-larger-j tie rule, and divides only the row's winner.  ``_row_rule``
-repeats that in numpy, lane by lane and butterfly step by step; it must
-equal ``chain_dp_exact_plain`` and JAX's exact ``chain_scores`` bit for
-bit (f64 compared as int64 patterns), on sorted reads, reads whose valid
-anchors are not a prefix, and reads with no valid anchor, at bands
-narrower than, near and wider than the warp.  The divide
-once is exact because a -> fl(a / 1000) is strictly increasing on the
-integers |a| <= 2^42, checked here at and near both ends and on 10^6
-random integers.
+anchor, computes the f-independent pair terms of each block of RB rows
+(the f64 gap cost and a 16-bit match length, 0xffff for a pair that is
+not ok) from an anchor window copied from rows i0 - bw, into the other
+of two buffers while the rows of the block before run (a producer warp
+and a consumer warp), lets the 32 lanes of a warp take the pairs of a
+row, packs each pair into the key (rr + 2^41 + 1) << 21 | j, rr the
+rounded milli-unit score before its divide by 1000, reduces the keys in
+two steps (the high word, then the low word among the lanes at its
+maximum) and divides only the row's winner.  ``_row_rule`` repeats that
+in numpy, block by block and lane by lane; it must equal
+``chain_dp_exact_plain`` and JAX's exact ``chain_scores`` bit for bit
+(f64 compared as int64 patterns), on sorted reads, reads whose valid
+anchors are not a prefix, reads with no valid anchor and reads whose
+rows to the last valid anchor are a multiple of the block, at bands
+narrower than, near and wider than the warp and at blocks of one row,
+the kernel's RB and more rows than a read has.  The divide once is exact
+because a -> fl(a / 1000) is strictly increasing on the integers |a| <=
+2^42, checked here at and near both ends and on 10^6 random integers.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -22,63 +32,84 @@ import jax.numpy as jnp
 
 from vgaligner_tpu.ops import chain as jax_chain
 
+from vgaligner_tpu_torch import kernels
 from vgaligner_tpu_torch.ops import chain as C
 from vgaligner_tpu_torch.testing import one_torch_thread
 
 K = 11
 NEG = -np.finfo(np.float64).max
 LANES = 32  # lanes a read in chain_dp_exact.cu
+NONE16 = 0xFFFF  # the match length of a pair that is not ok
+KEY_OFF = (1 << 41) + 1
 BANDS = [20, 50, 100]  # under one pair a lane, up to two (the CLI's 50), up to four
 _one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
-def _row_rule(qb, tb, te, valid, k, bw, table):
+def _block_terms(qb, tb, te, valid, i0, rows, k, bw, table):
+    """One read's pair terms for rows i0 .. i0 + rows - 1, from the window
+    of rows i0 - bw .. i0 + rows - 1 (rows below 0 invalid) -> (gcost
+    [rows, bw] f64, mlen [rows, bw] with NONE16 for a pair not ok)."""
+    max_gap = len(table) - 1
+    x = np.arange(i0 - bw, i0 + rows)
+    inside = x >= 0
+    xc = np.where(inside, x, 0)
+    wq, wt, we = (np.where(inside, a[xc].astype(np.int64), 0) for a in (qb, tb, te))
+    wv = inside & valid[xc]
+    ii = bw + np.arange(rows)[:, None]  # row i0 + rr at ii in the window
+    jj = ii - 1 - np.arange(bw)[None, :]
+    ql = wq[ii] - wq[jj]
+    tl = np.minimum(np.abs(wt[ii] - wt[jj]), np.abs(we[ii] - we[jj]))
+    gap = np.abs(ql - tl)
+    ok = wv[ii] & wv[jj] & (wq[jj] < wq[ii]) & (we[jj] < we[ii]) & (gap <= max_gap)
+    gcost = table[np.where(ok, gap, 0)]
+    mlen = np.where(ok, np.minimum(np.minimum(ql, tl), k), NONE16)
+    return gcost, mlen
+
+
+def _row_rule(qb, tb, te, valid, k, bw, table, rb=None):
     """The kernel's rule in numpy -> (f, pred, curr_max, max |rr| seen)."""
     B, A = qb.shape
-    max_gap = len(table) - 1
+    rb = rb or max(1, 640 // bw)
     f = np.full((B, A), float(k))
     pred = np.full((B, A), -1, dtype=np.int32)
     cmax = np.zeros(B)
     rr_max = 0.0
+    n_lanes = -(-bw // LANES) * LANES
     for b in range(B):
         idx = np.nonzero(valid[b])[0]
-        n = int(idx[-1]) + 1 if len(idx) else 0  # rows after the last valid anchor: k, -1
+        n_g = int(idx[-1]) + 1 if len(idx) else 0  # rows after the last valid anchor: k, -1
+        nblk = -(-n_g // rb)
+        bufs = [None, None]
+        block = lambda blk: _block_terms(qb[b], tb[b], te[b], valid[b], blk * rb,  # noqa: E731
+                                         min(rb, n_g - blk * rb), k, bw, table)
+        if nblk:
+            bufs[0] = block(0)
         cm = np.float64(0.0)
-        for i in range(n):
-            if not valid[b, i]:
-                continue
-            lane_best = []
-            for gl in range(LANES):
-                best, bj = np.float64(NEG), -1
-                for r in range(gl, bw, LANES):
-                    j = i - 1 - r
-                    if j < 0 or not valid[b, j]:
-                        continue
-                    ql = int(qb[b, i]) - int(qb[b, j])
-                    tl = min(abs(int(tb[b, i]) - int(tb[b, j])), abs(int(te[b, i]) - int(te[b, j])))
-                    gap = abs(ql - tl)
-                    if ql <= 0 or te[b, j] >= te[b, i] or gap > max_gap:
-                        continue
-                    x = (np.float64(f[b, j]) + np.float64(min(ql, tl, k))) - table[gap]
-                    y = x * np.float64(1000.0)
-                    rr = np.floor(y + 0.5) if y >= 0 else np.ceil(y - 0.5)
-                    rr_max = max(rr_max, abs(float(rr)))
-                    if rr > best or (rr == best and j > bj):
-                        best, bj = rr, j
-                lane_best.append((best, bj))
-            off = LANES // 2
-            while off:
-                nxt = []
-                for gl in range(LANES):
-                    (a, aj), (o, oj) = lane_best[gl], lane_best[gl ^ off]
-                    nxt.append((o, oj) if o > a or (o == a and oj > aj) else (a, aj))
-                lane_best = nxt
-                off //= 2
-            best, bj = lane_best[0]
-            m = best / np.float64(1000.0) if bj >= 0 else np.float64(NEG)
-            if m > k:
-                f[b, i], pred[b, i] = m, bj
-            cm = max(cm, m)
+        for blk in range(nblk):
+            if blk + 1 < nblk:  # the producer fills the other buffer first
+                bufs[(blk + 1) & 1] = block(blk + 1)
+            gcost, mlen = bufs[blk & 1]
+            for rr in range(gcost.shape[0]):
+                i = blk * rb + rr
+                j = i - 1 - np.arange(bw)
+                fj = f[b, np.maximum(j, 0)]
+                x = (fj + mlen[rr].astype(np.float64)) - gcost[rr]
+                y = x * np.float64(1000.0)
+                a = np.where(y >= 0, np.floor(y + 0.5), np.ceil(y - 0.5))
+                ok = mlen[rr] != NONE16
+                if ok.any():
+                    rr_max = max(rr_max, float(np.abs(a[ok]).max()))
+                keys = np.where(ok, ((a.astype(np.int64) + KEY_OFF) << 21) | np.where(j >= 0, j, 0), 0)
+                lane = np.zeros(n_lanes, dtype=np.int64)
+                lane[:bw] = keys
+                lane = lane.reshape(-1, LANES).max(axis=0)  # each lane's pairs r = l, l + 32, ...
+                hi = (lane >> 32).max()
+                lo = np.where(lane >> 32 == hi, lane & 0xFFFFFFFF, 0).max()
+                key = int((hi << 32) | lo)
+                m = np.float64((key >> 21) - KEY_OFF) / np.float64(1000.0) if key else np.float64(NEG)
+                if m > k:
+                    f[b, i], pred[b, i] = m, key & ((1 << 21) - 1)
+                cm = max(cm, m)
         cmax[b] = cm
     return f, pred, cmax, rr_max
 
@@ -155,6 +186,80 @@ def test_row_rule_on_unsorted_valid_matches_plain(bw):
     assert (pred >= 0).any() and not valid[0, -7:].any()
 
 
+def _layout(name, seed, B=5, A=640):
+    """Anchors of a layout: ``sorted`` (a read with no valid anchor),
+    ``scattered`` (target ends ascending, valid anchors not a prefix) and
+    ``rows_multiple_of_rb`` (valid prefixes of 600 rows, none, 1, 12 and
+    600: a multiple of a block of 1, 12 and 600 rows)."""
+    if name == "sorted":
+        return _anchors(seed, B, A, all_invalid=(1,))
+    if name == "scattered":
+        return _unsorted_valid(seed, B, A)
+    rng = np.random.default_rng(seed)
+    te = np.sort(rng.integers(0, 3 * A, (B, A)), axis=1).astype(np.int64) + K
+    qb = np.sort(rng.integers(0, A // 2, (B, A)), axis=1).astype(np.int32)
+    valid = np.zeros((B, A), bool)
+    for b, n in enumerate((600, 0, 1, 12, 600)):
+        valid[b, :n] = True
+    return qb, te - K, te, valid
+
+
+@pytest.mark.parametrize("rb", [1, None, 600])
+@pytest.mark.parametrize("layout", ["sorted", "scattered", "rows_multiple_of_rb"])
+def test_block_schedule_matches_plain_and_jax(layout, rb):
+    """The producer's blocks of one row, the kernel's RB (12 at bw 50)
+    and 600 rows, built from their windows into alternating buffers: the
+    rows equal the plain twin on the anchors as given and, after the
+    sort, JAX's exact chain_scores, bit for bit."""
+    qb, tb, te, valid = _layout(layout, 21)
+    table = C.make_gap_cost_table(K, 1000)
+    t = [torch.from_numpy(x) for x in (qb, tb, te, valid)]
+    want = C.chain_dp_exact_plain(*t, K, 50, table)
+    got = _row_rule(qb, tb, te, valid, K, 50, table, rb=rb)
+    for name, g, w in zip(("f", "pred", "curr_max"), got, want):
+        w = w.numpy()
+        if g.dtype == np.float64:
+            g, w = g.view(np.int64), w.view(np.int64)
+        np.testing.assert_array_equal(g, w, err_msg=f"{name} (as given)")
+    jx = jax_chain.chain_scores(jnp.asarray(qb), jnp.asarray(tb), jnp.asarray(te),
+                                jnp.asarray(valid), jnp.asarray(table), seed_length=K,
+                                bandwidth=50, precision="exact")
+    s = C.chain_scores(*t, table, seed_length=K, bandwidth=50, precision="exact")
+    got = _row_rule(*(x.numpy() for x in (s.qb, s.tb, s.te, s.valid)), K, 50, table, rb=rb)
+    for name, g in zip(("f", "pred", "curr_max"), got):
+        w = np.asarray(getattr(jx, name))
+        if g.dtype == np.float64:
+            g, w = g.view(np.int64), w.view(np.int64)
+        np.testing.assert_array_equal(g, w, err_msg=f"{name} (sorted, against JAX)")
+    n_g = np.where(valid, np.arange(valid.shape[1]) + 1, 0).max(axis=1)
+    assert (got[1] >= 0).any()
+    if layout == "rows_multiple_of_rb":
+        assert (n_g % (rb or 640 // 50) == 0).sum() >= 3
+    else:
+        assert (n_g == 0).any() or not valid[0, -7:].any()
+
+
+def test_kernel_source_keeps_the_plan():
+    """Two warps a read (a producer of pair terms and a consumer of rows)
+    that meet at a named barrier of 64 threads with a constant id, two
+    reads a block held to 64 registers (8 blocks an SM), the gap cost
+    looked up by the producer, and RB = 640 / bw rows a block, as the
+    rule above."""
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "chain_dp_exact.cu")
+    with open(src) as fh:
+        text = fh.read()
+    assert "constexpr int READS = 2;" in text and "THREADS = READS * 64;" in text
+    assert re.search(r"__launch_bounds__\(THREADS, MIN_BLOCKS\)", text)
+    assert "constexpr int MIN_BLOCKS = 8;" in text
+    assert '"bar.sync 1, 64;"' in text and '"bar.sync 2, 64;"' in text
+    assert "bar.sync %0" not in text  # an id in a register reserves all 16 barriers
+    assert "__ldg(gap_table + (ok ? gap : 0))" in text and "NONE16 = 0xffffu" in text
+    # the last valid row, the key's high word and its low word
+    assert text.count("__reduce_max_sync") == 3
+    assert text.count("max(1, 640 / bw)") == 1 and "rows a term block: 12 at bw 50" in text
+    assert "chain_dp_exact.cu" in kernels.SOURCES and "chain_dp_exact" in kernels.LAUNCHES
+
+
 @pytest.mark.parametrize("lo,hi", [(2 ** 42 - 300_000, 2 ** 42), (-(2 ** 42), -(2 ** 42) + 300_000),
                                    (-300_000, 300_000)])
 def test_divide_by_1000_strictly_increasing_near(lo, hi):
@@ -225,3 +330,37 @@ def test_row_key_order_is_the_tie_rule(seed):
         top = max(keys)
         assert top == keys[best] and 0 < min(keys) and top < 2 ** 63
         assert (top >> 21) - (1 << 41) - 1 == rr[best] and top & ((1 << 21) - 1) == j[best]
+
+
+def test_probe_takes_an_earlier_exact_kernel():
+    """``kernel_probe --old-chain-dp-exact PATH`` is a flag of its own
+    (``--old-chain-dp`` no longer required beside it), and the probe
+    refuses to run without a card."""
+    from vgaligner_tpu_torch import kernel_probe
+
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "chain_dp_exact.cu")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+            kernel_probe.main(["--old-chain-dp-exact", src])
+    with pytest.raises(SystemExit):
+        kernel_probe.main(["--old-chain-dp-exact"])  # the flag takes a path
+    assert "--old-chain-dp-exact PATH" in kernel_probe.__doc__
+
+
+def test_probe_edits_one_design_choice_a_copy():
+    """``kernel_probe``'s copies of chain_dp_exact.cu each differ from it
+    in one edit, and an edit whose text is gone raises."""
+    from vgaligner_tpu_torch import kernel_probe
+
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "chain_dp_exact.cu")
+    with open(src) as fh:
+        text = fh.read()
+    var = kernel_probe.exact_variant_sources(text)
+    assert set(var) == {"exact_regbar", "exact_nolb", "exact_ringload", "exact_rb6",
+                        "exact_rb24"}
+    for name, (old, new) in kernel_probe._EXACT_EDITS.items():
+        edited = var[f"exact_{name}"]
+        assert edited != text and edited.replace(new, old) == text
+    assert 'bar.sync %0' in var["exact_regbar"] and "MIN_BLOCKS)" not in var["exact_nolb"]
+    with pytest.raises(ValueError):
+        kernel_probe.exact_variant_sources(text.replace("640 / bw", "320 / bw"))

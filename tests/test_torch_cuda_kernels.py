@@ -557,6 +557,71 @@ def test_chain_exact_kernel_matches_plain(cuda_device, seed, B, A, bw, max_gap):
     assert torch.equal(pred.cpu(), cpred)
 
 
+def _edge_case(name):
+    """(qb, tb, te, valid as numpy, bandwidth, max_gap) of a case of the
+    exact kernel's block edges and shapes."""
+    if name.startswith("odd_B"):  # a block's second read absent
+        B = int(name[5:])
+        rng = np.random.default_rng(B)
+        qb = rng.integers(0, 90, (B, 300)).astype(np.int32)
+        tb = rng.integers(0, 600, (B, 300)).astype(np.int64)
+        valid = rng.random((B, 300)) < 0.8
+        _o, qb, tb, te, valid = C.sort_anchors(*(torch.from_numpy(x) for x in (qb, tb, tb + K, valid)))
+        return [x.numpy() for x in (qb, tb, te, valid)], 50, 1000
+    if name == "rows_multiple_of_rb":  # n_g 48 and 36, rb 12 at bw 50; a read with none
+        qb = np.tile(np.arange(100, dtype=np.int32) % 80, (4, 1))
+        tb = np.tile(np.arange(100, dtype=np.int64), (4, 1)) + 100
+        valid = np.zeros((4, 100), bool)
+        valid[0, :48] = valid[1, :36] = valid[3, :12] = True
+        return [qb, tb, tb + K, valid], 50, 1000
+    rng = np.random.default_rng(len(name))
+    B, A, bw, max_gap = {"bw700": (5, 2000, 700, 1000), "A65536": (2, 65536, 50, 1000),
+                         "max_gap30000": (6, 600, 50, 30000)}[name]
+    te = np.sort(rng.integers(0, 3 * A, (B, A)), axis=1).astype(np.int64) + K
+    qb = np.sort(rng.integers(0, A // 4 + 90, (B, A)), axis=1).astype(np.int32)
+    valid = rng.random((B, A)) < 0.8
+    valid[0, A // 2:] = False  # the rows after the last valid one
+    return [qb, te - K, te, valid], bw, max_gap
+
+
+@pytest.mark.parametrize("per_pair", [False, True])
+@pytest.mark.parametrize("case", ["odd_B1", "odd_B3", "odd_B5", "rows_multiple_of_rb", "bw700",
+                                  "A65536", "max_gap30000"])
+def test_chain_exact_kernel_edges_match_plain(cuda_device, case, per_pair):
+    """chain_dp_exact.cu's producer and consumer warps on both divide
+    paths, bit for bit: odd B (a block's second read absent), rows to the
+    last valid anchor a multiple of the term block and a read with none,
+    bw 700 (one row a block), A 65,536 (the mapper's cap) and a gap table
+    of 30,001 entries."""
+    args, bw, max_gap = _edge_case(case)
+    table = C.make_gap_cost_table(K, max_gap)
+    if per_pair:
+        table[1::7] *= -1.0
+    assert C.exact_divide_once(args[0].shape[1], K, table) != per_pair
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in args]
+    want = C.chain_dp_exact_plain(*t, K, bw, table)
+    got = C.chain_dp_exact(*t, K, bw, table)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int64) if g.dtype == torch.float64 else g,
+                           w.view(torch.int64) if w.dtype == torch.float64 else w)
+    assert bool((want[1] >= 0).any())
+
+
+def test_chain_exact_kernel_residency(cuda_device):
+    """Two reads a block, 8 blocks an SM at bw 50 (64 registers, 3 named
+    barriers and 27,712 B of shared memory a block): the long-read
+    launch's 65 reads and half the main path's 4,096 are resident at
+    once."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for div_once in (True, False):
+        occ = C.chain_dp_exact_occupancy(50, div_once)
+        assert occ == {"reads_a_block": 2, "blocks_an_sm": 8, "smem": 27712}
+    assert 2 * 8 * sms >= 4096 // 2
+    # bw 700: one row a block, a ring of 1,024, over 48 KB a block (the opt-in)
+    wide = C.chain_dp_exact_occupancy(700)
+    assert wide["smem"] == 2 * 36976 and wide["blocks_an_sm"] >= 1
+
+
 def test_slice_on_the_card_matches_cpu(cuda_device, tmp_path):
     from vgaligner_tpu_torch.graph import graph_from_gfa
     from vgaligner_tpu_torch.index import Index

@@ -1,15 +1,19 @@
-"""Two design choices timed on the card: the local cluster kernel's
-columns a CTA, and the fast chaining kernel against an earlier version.
+"""Design choices timed on the card: the local cluster kernel's columns
+a CTA, and the fast and exact chaining kernels against earlier versions.
 
-    python -m vgaligner_tpu_torch.kernel_probe --old-chain-dp PATH [--reps 10] [--json PATH]
+    python -m vgaligner_tpu_torch.kernel_probe [--old-chain-dp PATH]
+        [--old-chain-dp-exact PATH] [--reps 10] [--json PATH]
 
 Maps chip_smoke.py's long reads (``testing.long_reads`` on
 ``write_synthetic_gfa`` seed 0, k = 11) on the card as the smoke's
 long-read phase does: ``--precision fast`` mapping keeps the launch the
 fast chaining kernel (kernels/csrc/chain_dp.cu) receives, and the rspoa
-route (``--precision exact``) the largest batch the local cluster kernel
-(kernels/csrc/poa_local_cluster.cu) receives.  Then it builds, with
-nvcc, one library a source text into ``_build/probe/``:
+route (``--precision exact``) the launch the exact chaining kernel
+(kernels/csrc/chain_dp_exact.cu) receives and the largest batch the
+local cluster kernel (kernels/csrc/poa_local_cluster.cu) receives; and
+the main path's anchors of 8,192 reads (``sample_reads`` seed 77, 100
+bp, a_max 256).  Then it builds, with nvcc, one library a source text
+into ``_build/probe/``:
 
   * ``slice2048``: poa_local_cluster.cu as it is (at most 2,048 columns a
     CTA: one CTA a problem at W 2,048), and ``slice1024`` and
@@ -22,8 +26,22 @@ nvcc, one library a source text into ``_build/probe/``:
     kernel with the same C entry (the first port: that file from a
     checkout of an earlier commit).  It and the port's own kernel are
     held against ``chain_dp_plain``, then timed in turns (old, new, new,
-    old) on the long-read launch and on the main path's shape, 4,096
-    reads x 256 anchors (``sample_reads`` seed 77, 100 bp).
+    old) on the long-read launch and on the main path's shape, the first
+    4,096 reads x 256 anchors;
+  * ``old_chain_dp_exact``: the chain_dp_exact.cu at PATH, an earlier
+    version with the same C entry (the one-warp-a-read plan: that file
+    from a checkout of an earlier commit).  It and the port's own kernel
+    are held against ``chain_dp_exact_plain`` bit for bit, then timed in
+    turns (old, new, new, old) on the long-read launch and on the main
+    path's 4,096 x 256 anchors (int64 tb/te), kernels alone through
+    their C entries, then in turns on the first 512-8,192 of the main
+    reads (the two keep different numbers of reads resident); in the
+    same turns on both launches, the port's chain_dp_exact.cu with each
+    of its design choices undone alone (``exact_variant_sources``),
+    each held against the twin too.
+
+Each section runs when its PATH is given; the local cluster kernel's
+always does.
 
 Every line carries the card's name and power limit; without a CUDA GPU it
 exits with an error.
@@ -52,9 +70,39 @@ def slice_sources(src: str) -> dict:
     return {f"slice{s}": src.replace(_SLICE_LINE, f"constexpr int SLICE = {s};") for s in SLICES}
 
 
+# chain_dp_exact.cu's design choices, each undone in an edited copy: the
+# barrier id in a register (ptxas then reserves all 16 named barriers a
+# block), no register cap, the consumer's first two f values loaded from
+# the ring at their row, and term blocks of 6 and 24 rows at bw 50
+_EXACT_EDITS = {
+    "regbar": ('''  if (rib == 0)
+    asm volatile("bar.sync 1, 64;" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 64;" ::: "memory");''',
+               '  asm volatile("bar.sync %0, 64;" ::"r"(1 + rib) : "memory");'),
+    "nolb": ("__launch_bounds__(THREADS, MIN_BLOCKS)", "__launch_bounds__(THREADS)"),
+    "ringload": ("const double f0 = gl == 0 ? fprev : rf0, f1 = rf1;",
+                 "const double f0 = fr[(i - 1 - gl) & rmask], f1 = fr[(i - 33 - gl) & rmask];"),
+    "rb6": ("c.rb = max(1, 640 / bw);", "c.rb = max(1, 320 / bw);"),
+    "rb24": ("c.rb = max(1, 640 / bw);", "c.rb = max(1, 1280 / bw);"),
+}
+
+
+def exact_variant_sources(src: str) -> dict:
+    """chain_dp_exact.cu with each of _EXACT_EDITS applied alone, by name."""
+    out = {}
+    for name, (old, new) in _EXACT_EDITS.items():
+        if src.count(old) != 1:
+            raise ValueError(f"chain_dp_exact.cu no longer has the text the {name} edit replaces")
+        out[f"exact_{name}"] = src.replace(old, new)
+    return out
+
+
 def _captured_launches(dev):
-    """The long reads' fast chaining launch (qb, tb, te, valid) and the
-    local cluster kernel's largest batch (vcodes, vpred, nv, q, nq)."""
+    """The long reads' fast and exact chaining launches (qb, tb, te,
+    valid), the main path's anchors of 8,192 reads (the same, tb/te
+    int64) and the local cluster kernel's largest batch (vcodes, vpred,
+    nv, q, nq)."""
     from .graph import graph_from_gfa
     from .index import Index
     from .io.fastx import QuerySequence
@@ -66,7 +114,7 @@ def _captured_launches(dev):
 
     work = tempfile.mkdtemp(prefix="vg_kernel_probe_")
     got: dict = {}
-    real_k1, real_k9 = C.chain_dp, PD.poa_local_cluster
+    real_k1, real_k5, real_k9 = C.chain_dp, C.chain_dp_exact, PD.poa_local_cluster
 
     def keep(name, size, real):
         def call(*args):
@@ -82,20 +130,21 @@ def _captured_launches(dev):
         index = Index.build(graph, K, 100, 100)
         qs = [QuerySequence(f"read{i}", r) for i, r in enumerate(long_reads(graph))]
         C.chain_dp = keep("k1", lambda a: a[0].numel(), real_k1)
+        C.chain_dp_exact = keep("k5", lambda a: a[0].numel(), real_k5)
         PD.poa_local_cluster = keep("k9", lambda a: int(a[2].sum()) * a[3].shape[1], real_k9)
         Mapper(index, dev, precision="fast").map_reads(qs)
         chains = Mapper(index, dev, precision="exact").map_reads(qs)
         PoaAligner(index, dev, engine=PoaEngine.RSPOA).best_alignments_for_queries(chains)
-        main = _main_anchors(index, sample_reads(graph, 12288, 100, seed=77)[:4096], dev)
+        main = _main_anchors(index, sample_reads(graph, 12288, 100, seed=77)[:8192], dev)
     finally:
-        C.chain_dp, PD.poa_local_cluster = real_k1, real_k9
+        C.chain_dp, C.chain_dp_exact, PD.poa_local_cluster = real_k1, real_k5, real_k9
         shutil.rmtree(work, ignore_errors=True)
-    return got["k1"][0][:4], main, got["k9"][0][:5]
+    return got["k1"][0][:4], got["k5"][0][:4], main, got["k9"][0][:5]
 
 
 def _main_anchors(index, reads, dev):
     """The main path's chaining input: ``reads`` encoded, looked up at
-    a_max 256 and sorted."""
+    a_max 256 and sorted (tb/te int64, as the exact kernel takes them)."""
     import torch
 
     from .index.device_index import device_index
@@ -107,8 +156,15 @@ def _main_anchors(index, reads, dev):
     w, wv = window_kmer_codes(torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev), K)
     anchors = lookup_and_materialize_anchors(device_index(index, dev), w, wv, 256)
     _o, qb, tb, te, valid = sort_anchors(anchors.qb, anchors.tb, anchors.te, anchors.valid)
-    return (qb.contiguous(), tb.to(torch.int32).contiguous(), te.to(torch.int32).contiguous(),
-            valid.contiguous())
+    return qb.contiguous(), tb.contiguous(), te.contiguous(), valid.contiguous()
+
+
+def _int32_anchors(args):
+    """(qb, tb, te, valid) with tb/te as the fast kernel's int32."""
+    import torch
+
+    qb, tb, te, valid = args
+    return qb, tb.to(torch.int32).contiguous(), te.to(torch.int32).contiguous(), valid
 
 
 def _chain_launcher(entry, args):
@@ -127,6 +183,33 @@ def _chain_launcher(entry, args):
     ptrs = ([x.data_ptr() for x in args] + [B, A, K, 50, 1000] + [o.data_ptr() for o in outs]
             + [kernels.stream_ptr(dev)])
     return (lambda: kernels.check(entry(*ptrs), "kernel_probe chain_dp")), outs
+
+
+def _exact_launcher(entry, args):
+    """A call of a ``vg_chain_dp_exact`` C entry on ``args`` with the gap
+    table and outputs allocated once -> (call, (f, pred, curr_max))."""
+    import torch
+
+    from . import kernels
+    from .ops import chain as C
+
+    qb, _tb, _te, _valid = args
+    B, A = qb.shape
+    dev = qb.device
+    table = C.make_gap_cost_table(K, 1000)
+    tab = C._device_gap_table(table, K, dev)
+    outs = (torch.empty((B, A), dtype=torch.float64, device=dev),
+            torch.empty((B, A), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.float64, device=dev))
+    div_once = int(C.exact_divide_once(A, K, table))
+    ptrs = ([x.data_ptr() for x in args] + [tab.data_ptr(), B, A, K, 50, 1000, div_once]
+            + [o.data_ptr() for o in outs] + [kernels.stream_ptr(dev)])
+
+    def call():
+        kernels.check(entry(*ptrs), "kernel_probe chain_dp_exact")
+        return tab
+
+    return call, outs
 
 
 def _local_launcher(so, args):
@@ -171,6 +254,56 @@ def _turns(calls: dict, reps: int) -> dict:
     return out
 
 
+def _exact_section(old_entry, variants, long_k5, main8, card, reps, out):
+    """The exact chaining kernel against the version at PATH and its
+    edited copies ``variants`` (module docstring); ``main8`` the anchors
+    of 8,192 main reads."""
+    import torch
+
+    from . import kernels
+    from .ops import chain as C
+
+    table = C.make_gap_cost_table(K, 1000)
+    entries = {"old": old_entry, "new": kernels.lib().vg_chain_dp_exact}
+    main_k5 = [x[:4096].contiguous() for x in main8]
+    everyone = {**entries, **variants}
+    for label, k5 in (("long", long_k5), ("main", main_k5)):
+        want = C.chain_dp_exact_plain(*k5, K, 50, table)
+        calls = {}
+        for name, entry in everyone.items():
+            call, got = _exact_launcher(entry, k5)
+            call()
+            _held(f"chain_dp_exact ({name}) on the {label} launch",
+                  [g.view(torch.int64) if g.dtype == torch.float64 else g for g in got],
+                  [w.view(torch.int64) if w.dtype == torch.float64 else w for w in want])
+            calls[name] = call
+        ms = _turns(calls, reps)
+        Bk, A = k5[0].shape
+        rows = int((torch.where(k5[3], torch.arange(A, device=k5[3].device), -1).max(dim=1)
+                    .values + 1).max())
+        out[f"chain_exact_{label}"] = {"B": Bk, "A": A, "rows": rows, "ms": ms}
+        print(f"[probe] chain_dp_exact on the {label} launch B {Bk} x A {A} ({rows} rows to the "
+              f"last valid anchor at most): both equal to the twin bit for bit; kernels alone in "
+              f"turns old {ms['old'][0]:.4f}, new {ms['new'][0]:.4f}, new {ms['new'][1]:.4f}, "
+              f"old {ms['old'][1]:.4f} ms; us a row of the longest read: old "
+              f"{ms['old'][0] * 1e3 / rows:.3f}/{ms['old'][1] * 1e3 / rows:.3f}, new "
+              f"{ms['new'][0] * 1e3 / rows:.3f}/{ms['new'][1] * 1e3 / rows:.3f}; edited copies, "
+              f"in the same turns: " + ", ".join(
+                  f"{v} {ms[v][0]:.4f}/{ms[v][1]:.4f}" for v in variants) + f" ({card})")
+    sweep = {}
+    for B in (512, 1024, 2048, 4096, 6144, 8192):
+        part = [x[:B].contiguous() for x in main8]
+        sweep[B] = _turns({n: _exact_launcher(e, part)[0] for n, e in entries.items()}, reps)
+    occ = C.chain_dp_exact_occupancy(50)
+    out["chain_exact_sweep"] = sweep
+    out["chain_exact_occupancy"] = occ
+    print(f"[probe] chain_dp_exact in turns on the first B of 8,192 main reads (B: old, new, "
+          f"new, old ms): " + "; ".join(
+              f"{B}: {v['old'][0]:.4f}, {v['new'][0]:.4f}, {v['new'][1]:.4f}, {v['old'][1]:.4f}"
+              for B, v in sweep.items()) + f"; new: {occ['blocks_an_sm']} blocks an SM of "
+          f"{occ['reads_a_block']} reads, {occ['smem']} B a block ({card})")
+
+
 def main(argv=None) -> dict:
     import torch
 
@@ -181,8 +314,10 @@ def main(argv=None) -> dict:
     from .poa_cluster_probe import _build
 
     ap = argparse.ArgumentParser(prog="python -m vgaligner_tpu_torch.kernel_probe")
-    ap.add_argument("--old-chain-dp", required=True,
+    ap.add_argument("--old-chain-dp",
                     help="another version of kernels/csrc/chain_dp.cu to time against")
+    ap.add_argument("--old-chain-dp-exact",
+                    help="another version of kernels/csrc/chain_dp_exact.cu to time against")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--json", dest="json_path")
     args = ap.parse_args(argv)
@@ -194,18 +329,27 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     with open(os.path.join(CSRC, "poa_local_cluster.cu")) as fh:
         sources = slice_sources(fh.read())
-    with open(args.old_chain_dp) as fh:
-        sources["old_chain_dp"] = fh.read()
+    for name, path in (("old_chain_dp", args.old_chain_dp),
+                       ("old_chain_dp_exact", args.old_chain_dp_exact)):
+        if path:
+            with open(path) as fh:
+                sources[name] = fh.read()
+    if args.old_chain_dp_exact:
+        with open(os.path.join(CSRC, "chain_dp_exact.cu")) as fh:
+            sources.update(exact_variant_sources(fh.read()))
     libs = _build(sources, os.path.join(BUILD_DIR, "probe"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, (so, _regs) in libs.items():
         if name == "old_chain_dp":
             so.vg_chain_dp.argtypes = [vp] * 4 + [ci] * 5 + [vp] * 4
             so.vg_chain_dp.restype = ci
+        elif name.startswith(("old_chain_dp_exact", "exact_")):
+            so.vg_chain_dp_exact.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 4
+            so.vg_chain_dp_exact.restype = ci
         else:
             so.vg_poa_local_cluster.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 9
             so.vg_poa_local_cluster.restype = ci
-    long_k1, main_k1, batch = _captured_launches(dev)
+    long_k1, long_k5, main8, batch = _captured_launches(dev)
     out = {"card": card, "registers": {n: regs for n, (_so, regs) in libs.items()}}
 
     # the local cluster kernel's columns a CTA
@@ -228,21 +372,32 @@ def main(argv=None) -> dict:
           + f" ms ({card})")
 
     # the fast chaining kernel against the version at PATH
-    for label, k1 in (("long", long_k1), ("main", main_k1)):
-        want = C.chain_dp_plain(*k1, K, 50, 1000)
-        calls = {}
-        for name, entry in (("old", libs["old_chain_dp"][0].vg_chain_dp),
-                            ("new", kernels.lib().vg_chain_dp)):
-            call, got = _chain_launcher(entry, k1)
-            call()
-            _held(f"chain_dp ({name}) on the {label} launch", got, want)
-            calls[name] = call
-        ms = _turns(calls, args.reps)
-        Bk, A = k1[0].shape
-        out[f"chain_{label}"] = {"B": Bk, "A": A, "ms": ms}
-        print(f"[probe] chain_dp on the {label} launch B {Bk} x A {A}: both equal to the twin; "
-              f"in turns old {ms['old'][0]:.4f}, new {ms['new'][0]:.4f}, new {ms['new'][1]:.4f}, "
-              f"old {ms['old'][1]:.4f} ms ({card})")
+    if args.old_chain_dp:
+        main_k1 = _int32_anchors([x[:4096].contiguous() for x in main8])
+        for label, k1 in (("long", long_k1), ("main", main_k1)):
+            want = C.chain_dp_plain(*k1, K, 50, 1000)
+            calls = {}
+            for name, entry in (("old", libs["old_chain_dp"][0].vg_chain_dp),
+                                ("new", kernels.lib().vg_chain_dp)):
+                call, got = _chain_launcher(entry, k1)
+                call()
+                _held(f"chain_dp ({name}) on the {label} launch", got, want)
+                calls[name] = call
+            ms = _turns(calls, args.reps)
+            Bk, A = k1[0].shape
+            out[f"chain_{label}"] = {"B": Bk, "A": A, "ms": ms}
+            print(f"[probe] chain_dp on the {label} launch B {Bk} x A {A}: both equal to the twin; "
+                  f"in turns old {ms['old'][0]:.4f}, new {ms['new'][0]:.4f}, new "
+                  f"{ms['new'][1]:.4f}, old {ms['old'][1]:.4f} ms ({card})")
+    # the exact chaining kernel against the version at PATH
+    if args.old_chain_dp_exact:
+        variants = {n[len("exact_"):]: libs[n][0].vg_chain_dp_exact
+                    for n in libs if n.startswith("exact_")}
+        _exact_section(libs["old_chain_dp_exact"][0].vg_chain_dp_exact, variants, long_k5, main8,
+                       card, args.reps, out)
+        print("[probe] ptxas (<false>, <true>): " + "; ".join(
+            f"{n}: " + ", ".join(out["registers"][n])
+            for n in ["old_chain_dp_exact", *(f"exact_{v}" for v in variants)]))
     if args.json_path:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_path)), exist_ok=True)
         with open(args.json_path, "w") as fh:

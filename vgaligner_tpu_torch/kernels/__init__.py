@@ -157,6 +157,8 @@ def lib() -> ctypes.CDLL:
         so.vg_chain_gap_cost.restype = ci
         so.vg_chain_dp_exact.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 4
         so.vg_chain_dp_exact.restype = ci
+        so.vg_chain_dp_exact_occupancy.argtypes = [ci, ci, vp]
+        so.vg_chain_dp_exact_occupancy.restype = ci
         so.vg_poa_local.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 7
         so.vg_poa_local.restype = ci
         so.vg_poa_local_warp.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 8

@@ -20,7 +20,8 @@
 // and never recomputed here.  Every f64 step is an explicit
 // __dadd_rn/__dsub_rn/__dmul_rn/__ddiv_rn: nvcc would otherwise contract
 // x*1000 + 0.5 into an FMA, whose single rounding changes bits, and the
-// division must be a true IEEE divide, not a multiply by 1/1000.
+// division must be a true IEEE divide, not a multiply by 1/1000.  (mlen -
+// gcost is never formed: (f + mlen) - g rounds twice, as the reference.)
 //
 // One divide a row (DIV_ONCE).  The lanes compare rr, the integer-valued
 // double before the divide, with the larger-j tie rule, and only the
@@ -41,34 +42,62 @@
 // divides every pair as the plain twin does.
 //
 // What bounds it on the card: a read's latency, one dependent step per
-// anchor row; per pair a few f64 operations and a table load.  No
-// bandwidth to speak of.  The design attacks the serial step:
+// anchor row; per pair a few f64 operations.  No bandwidth to speak of.
+// The long-read launch is B 65 x A 16,384 with one read of 9,544 rows to
+// its last valid anchor on a nearly empty card, so its time is that
+// read's rows times one row's latency.  The design (chain_dp.cu's plan)
+// takes everything but that row off the serial path:
 //
-//  * a warp owns one read; lane l takes j = i-1-l, i-1-l-32, ...
-//    (8 and 16 lanes a read, with a butterfly reduction, were slower on
-//    the H100 from the final design on: PERF.md);
-//  * the last valid anchor: before the loop the lanes find it
-//    (invalid anchors are sorted last, but nothing here assumes that
-//    valid anchors form a prefix) and write f = k, pred = -1 to every
-//    later row in parallel, which is what the recurrence gives an
-//    invalid anchor; the serial loop stops after the last valid row;
-//  * the f-independent pair terms (ok, mlen and the gap index) are
-//    computed for a block of RB rows in parallel and packed into one
-//    32-bit word a pair in shared memory, gap << 8 | mlen, or ~0 for a
-//    pair that is not ok (the wrapper checks k <= 255 and
-//    max_gap < 2^24 - 1); the serial step is then only the f-dependent
-//    add, round and compare.  The block's anchors (rows i0 - bw to
-//    i0 + RB) are first copied into shared memory with every load in
-//    flight at once, so a row pays one device-memory round trip per
-//    block, not several: with loads from device memory in the term loop
-//    a lone read took about 1.1 us a row on the H100;
-//  * the last bw + 1 values of f live in a ring of shared memory (a
-//    power of two above bw, so the slot written at row i is never one a
-//    lane still reads); one __syncwarp a row publishes f(i);
-//  * an invalid row costs no pair and no reduction;
-//  * the gap table sits in shared memory beside the rings and term
-//    blocks (8 KB at max_gap 1,000); a table too large for that is read
-//    from device memory instead.
+//  * two warps a read, two reads a block: a producer warp copies block
+//    blk + 1's anchor window (rows i0 - bw .. i0 + RB, every load in
+//    flight at once) into shared memory and computes its f-independent
+//    pair terms into the other of two term buffers, while a consumer warp
+//    runs block blk's serial rows, lane l taking j = i-1-l, i-33-l, ...
+//    (8 and 16 lanes a read, with a butterfly reduction, were slower);
+//    the two meet at one named barrier a block (bar.sync 1 + the read's
+//    slot in the block, 64 threads);
+//  * the producer looks the gap cost up itself (the table from device
+//    memory, through L1; any max_gap), so a term is the f64 gcost and a
+//    16-bit mlen, 0xffff for a pair that is not ok (mlen <= k <= 255, so
+//    no pair collides with the marker, whatever the table holds); the
+//    consumer never touches the table;
+//  * the last bw + 1 values of f live in a ring of shared memory (a power
+//    of two above bw, so the slot written at row i is never one a lane
+//    still reads), written by lane 0; one __syncwarp a row publishes
+//    f(i).  Every lane knows f(i - 1) after the reduction, so lane 0 takes
+//    its first pair's f from a register, and the other lanes' first two
+//    ring values (written a row or more before) and the next row's first
+//    two pairs' terms (all of them at bw <= 64) are loaded a row ahead:
+//    no shared-memory load stands between one row's f and the next row's
+//    adds;
+//  * the last valid anchor: both warps find it first (invalid anchors are
+//    sorted last, but nothing here assumes that valid anchors form a
+//    prefix); the rows stop after it, and the producer writes f = k, pred
+//    = -1 to every later row, which is what the recurrence gives an
+//    invalid anchor, while the consumer runs the last block.  Every row
+//    up to it takes the reduction (an invalid row's pairs are all "not
+//    ok": f = k, pred = -1, curr_max untouched, as the twin).
+//
+// Residency at bw 50 (rb 12, ring 64): 13,856 B of shared memory a read
+// (f ring 512, two f64 term buffers 9,600, the window 1,344, two mlen
+// buffers 2,400), 27,712 B a block of 128 threads.  The barrier ids are
+// constants, so ptxas reserves 3 named barriers a block (an id in a
+// register reserves all 16, and the SM's barriers then held the kernel to
+// 4 blocks an SM), and __launch_bounds__(128, 8) holds it to 64 registers
+// (ptxas gave it 48 without, and the row ran slower), so an SM keeps 8
+// blocks, 16 reads: 2,112 on 132 SMs.  The main launch, 4,096 reads, is
+// two waves of them, against one wave of the one-warp-a-read plan this
+// replaces (32 reads an SM, one warp computing a block's terms and then
+// its rows, with the table in shared memory); the two-warp plan was
+// faster at every B from 512 to 8,192 on the H100 (PERF.md), so it is
+// the only plan.
+//
+// Edges: an absent read (odd B) returns both its warps before any named
+// barrier; a read with no valid anchor has no block, and its two warps
+// meet once; the last block may be shorter than RB (its window is rows +
+// bw rows), the window's left edge below row 0 reads as invalid, and n_g
+// a multiple of RB gives full blocks only.  The producer refills a term
+// buffer only after the barrier that ends the consumer's use of it.
 
 #include <cfloat>
 #include <cstdint>
@@ -76,133 +105,184 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr size_t SMEM_MAX = 200 * 1024;
-constexpr unsigned NONE = 0xffffffffu;  // a pair that is not ok
+constexpr int READS = 2;  // reads a block, two warps each
+constexpr int THREADS = READS * 64;
+constexpr int MIN_BLOCKS = 8;  // blocks an SM: at most 64 registers
+constexpr unsigned NONE16 = 0xffffu;  // the mlen of a pair that is not ok
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int J_BITS = 21;                           // j < 2^21 in a row's key
-constexpr long long KEY_OFF = (1LL << 41) + 1;       // rr + KEY_OFF in [1, 2^42)
+constexpr int J_BITS = 21;                      // j < 2^21 in a row's key
+constexpr long long KEY_OFF = (1LL << 41) + 1;  // rr + KEY_OFF in [1, 2^42)
+static_assert(READS == 2, "pair_sync names one barrier a read");
 
-// doubles of shared memory a read takes: the f ring, the anchor window of
-// rb + bw rows (tb, te, qb, valid) and rb x bw term words
-__host__ __device__ __forceinline__ size_t group_doubles(int ring, int rb, int bw) {
+// bytes of shared memory a read takes: the f ring, two buffers of rb x bw
+// f64 gap costs, the producer's anchor window of rb + bw rows (tb, te,
+// qb, valid) and two buffers of rb x bw 16-bit mlen
+__host__ __device__ __forceinline__ size_t group_bytes(int ring, int rb, int bw) {
   const size_t wn = (size_t)((rb + bw + 3) & ~3);
-  return (size_t)ring + (wn * (8 + 8 + 4 + 1) + (size_t)rb * bw * 4 + 7) / 8;
+  const size_t nt = (size_t)rb * bw;
+  return (8 * ((size_t)ring + 2 * nt) + wn * (8 + 8 + 4 + 1) + 2 * 2 * nt + 7) & ~(size_t)7;
 }
 
 __device__ __forceinline__ double round_half_away(double y) {
   return y >= 0.0 ? floor(__dadd_rn(y, 0.5)) : ceil(__dsub_rn(y, 0.5));
 }
 
+// the two warps of the block's read rib meet here: named barrier 1 + rib
+// of 64 threads.  The id is a constant, so ptxas reserves 3 barriers a
+// block, not all 16 (an id in a register reserves 16, and the SM's
+// barriers then hold it to 4 blocks)
+__device__ __forceinline__ void pair_sync(int rib) {
+  if (rib == 0)
+    asm volatile("bar.sync 1, 64;" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 64;" ::: "memory");
+}
+
+// DIV_ONCE: a pair's row key, (rr + 2^41 + 1) << 21 | j, 0 for a
+// pair that is not ok (its ring slot and g are then never used)
+__device__ __forceinline__ long long pair_key(double f, unsigned m, double g, int j) {
+  const double x = __dsub_rn(__dadd_rn(f, (double)(int)m), g);
+  const long long a = __double2ll_rn(round_half_away(__dmul_rn(x, 1000.0)));
+  return m == NONE16 ? 0 : ((a + KEY_OFF) << J_BITS) | j;
+}
+
 template <bool DIV_ONCE>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     chain_dp_exact_kernel(const int* __restrict__ qb, const long long* __restrict__ tb,
                           const long long* __restrict__ te, const uint8_t* __restrict__ valid,
                           const double* __restrict__ gap_table, int B, int A, int k, int bw,
-                          int ring, int rb, int max_gap, int table_smem,
-                          double* __restrict__ f_out, int* __restrict__ pred_out,
-                          double* __restrict__ cmax_out) {
-  extern __shared__ double smem[];
-  const int n_tab = table_smem ? max_gap + 1 : 0;
-  if (table_smem) {
-    for (int g = threadIdx.x; g < n_tab; g += blockDim.x) smem[g] = gap_table[g];
-  }
-  __syncthreads();
-  const double* gt = table_smem ? smem : gap_table;
-  const int gib = threadIdx.x >> 5;  // warp (read) in the block
-  const int gl = threadIdx.x & 31;   // lane
-  const int b = blockIdx.x * WARPS + gib;
-  if (b >= B) return;  // whole warps
-  // a read's shared memory: its f ring, then the anchor window of a term
-  // block (tb, te, qb, valid for rows i0 - bw .. i0 + rb), then the terms
+                          int ring, int rb, int max_gap, double* __restrict__ f_out,
+                          int* __restrict__ pred_out, double* __restrict__ cmax_out) {
+  extern __shared__ double smem_d[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_d);
+  const int warp = threadIdx.x >> 5;
+  const int gl = threadIdx.x & 31;  // lane
+  const int rib = warp >> 1;        // read in the block
+  const bool producer = (warp & 1) != 0;
+  const int b = blockIdx.x * READS + rib;
+  if (b >= B) return;  // both warps of an absent read, before any barrier
   const int wn = (rb + bw + 3) & ~3;
-  double* fr = smem + n_tab + (size_t)gib * group_doubles(ring, rb, bw);
-  long long* tbw = reinterpret_cast<long long*>(fr + ring);
+  const int nt = rb * bw;  // term slots a buffer
+  double* fr = reinterpret_cast<double*>(smem + (size_t)rib * group_bytes(ring, rb, bw));
+  double* gterm = fr + ring;  // [2][rb * bw] gap costs
+  long long* tbw = reinterpret_cast<long long*>(gterm + 2 * nt);
   long long* tew = tbw + wn;
   int* qbw = reinterpret_cast<int*>(tew + wn);
   uint8_t* vw = reinterpret_cast<uint8_t*>(qbw + wn);
-  unsigned* terms = reinterpret_cast<unsigned*>(vw + wn);
+  unsigned short* mterm = reinterpret_cast<unsigned short*>(vw + wn);  // [2][rb * bw] mlen
   const size_t row = (size_t)b * A;
   const int* qbr = qb + row;
   const long long* tbr = tb + row;
   const long long* ter = te + row;
   const uint8_t* var = valid + row;
   const double k_f = (double)k;
-  const int rmask = ring - 1;
 
-  // (1) this read's rows after its last valid anchor: f = k, pred = -1
+  // (1) this read's last valid anchor, found by each of its warps
   int last = -1;
   for (int i = gl; i < A; i += 32)
     if (var[i]) last = i;
-  const int n_g = __reduce_max_sync(FULL, (unsigned)(last + 1));
-  for (int i = n_g + gl; i < A; i += 32) {
-    f_out[row + i] = k_f;
-    pred_out[row + i] = -1;
-  }
+  const int n_g = (int)__reduce_max_sync(FULL, (unsigned)(last + 1));
+  const int nblk = (n_g + rb - 1) / rb;
 
-  // (2) blocks of rb rows: pair terms in parallel, then the serial steps
-  double cm = 0.0;
-  for (int i0 = 0; i0 < n_g; i0 += rb) {
-    const int rows = min(rb, n_g - i0);
-    // the block's anchor window into shared memory, every load in flight at
-    // once, after every lane is done with the last block's
-    __syncwarp();
-    const int wb = i0 - bw;
-    for (int t = gl; t < rb + bw; t += 32) {
-      const int x = wb + t;
-      const bool in = x >= 0 && x < A;
-      tbw[t] = in ? tbr[x] : 0;
-      tew[t] = in ? ter[x] : 0;
-      qbw[t] = in ? qbr[x] : 0;
-      vw[t] = in ? var[x] : 0;
-    }
-    __syncwarp();
+  if (producer) {
+    // (2) the pair terms of block blk + 1 while the consumer runs block
+    // blk; one barrier between blocks
+    for (int blk = 0; blk <= nblk; ++blk) {
+      if (blk < nblk) {
+        const int i0 = blk * rb;
+        const int rows = min(rb, n_g - i0);
+        const int wb = i0 - bw;
+        __syncwarp();  // every lane is done with the last block's window
+        for (int t = gl; t < rows + bw; t += 32) {
+          const int x = wb + t;
+          const bool in = x >= 0;  // x < n_g <= A
+          tbw[t] = in ? tbr[x] : 0;
+          tew[t] = in ? ter[x] : 0;
+          qbw[t] = in ? qbr[x] : 0;
+          vw[t] = in ? var[x] : 0;
+        }
+        __syncwarp();
+        double* gb = gterm + (blk & 1) * nt;
+        unsigned short* mb = mterm + (blk & 1) * nt;
+        int rr = gl / bw, r = gl - rr * bw;  // pair p = rr * bw + r
 #pragma unroll 2
-    for (int rr = 0; rr < rows; ++rr) {
-      const int ii = bw + rr;  // row i0 + rr at ii in the window
-      const bool vi = vw[ii] != 0;
-      const long long qbi = qbw[ii], tbi = tbw[ii], tei = tew[ii];
-      for (int r = gl; r < bw; r += 32) {
-        const int jj = ii - 1 - r;  // j = i - 1 - r; a j below 0 is not valid in the window
-        const long long qbj = qbw[jj], tej = tew[jj];
-        const long long ql = qbi - qbj;
-        const long long tl = min(llabs(tbi - tbw[jj]), llabs(tei - tej));
-        const long long gap = llabs(ql - tl);
-        const bool ok = vi & (vw[jj] != 0) & (qbj < qbi) & (tej < tei) & (gap <= max_gap);
-        terms[rr * bw + r] =
-            ok ? ((unsigned)gap << 8) | (unsigned)min(min(ql, tl), (long long)k) : NONE;
-      }
-    }
-    __syncwarp();
-    for (int rr = 0; rr < rows; ++rr) {
-      const int i = i0 + rr;
-      if (vw[bw + rr] == 0) {  // an invalid row: no pair, no reduction
-        if (gl == 0) {
+        for (int p = gl; p < rows * bw; p += 32) {
+          const int ii = bw + rr;     // row i0 + rr at ii in the window
+          const int jj = ii - 1 - r;  // j = i - 1 - r; a j below 0 is not valid in the window
+          const long long qbi = qbw[ii], qbj = qbw[jj], tei = tew[ii], tej = tew[jj];
+          const long long ql = qbi - qbj;
+          const long long tl = min(llabs(tbw[ii] - tbw[jj]), llabs(tei - tej));
+          const long long gap = llabs(ql - tl);
+          const bool ok = (vw[ii] != 0) & (vw[jj] != 0) & (qbj < qbi) & (tej < tei) &
+                          (gap <= max_gap);
+          gb[p] = __ldg(gap_table + (ok ? gap : 0));
+          mb[p] = ok ? (unsigned short)min(min(ql, tl), (long long)k) : (unsigned short)NONE16;
+          r += 32;
+          while (r >= bw) {
+            r -= bw;
+            ++rr;
+          }
+        }
+      } else {
+        // rows after the last valid anchor: f = k, pred = -1, while the
+        // consumer runs the last block
+        for (int i = n_g + gl; i < A; i += 32) {
           f_out[row + i] = k_f;
           pred_out[row + i] = -1;
         }
-        continue;
       }
+      pair_sync(rib);
+    }
+    return;
+  }
+
+  // (3) the consumer: the serial rows, block by block as the producer
+  // fills them.  Every lane knows f(i - 1) after the reduction (fprev),
+  // so lane 0 takes its first pair's f from there, and the other lanes'
+  // first two ring values, f(i - 1 - gl) and f(i - 33 - gl), written a
+  // row or more before, are loaded a row ahead: no shared-memory load
+  // stands between one row's f and the next row's adds.
+  const int rmask = ring - 1;
+  double cm = 0.0, fprev = 0.0, rf0 = 0.0, rf1 = 0.0;
+  pair_sync(rib);
+  for (int blk = 0; blk < nblk; ++blk) {
+    const int i0 = blk * rb;
+    const int rows = min(rb, n_g - i0);
+    const double* gb = gterm + (blk & 1) * nt;
+    const unsigned short* mb = mterm + (blk & 1) * nt;
+    // a row's first two pairs (r = gl, gl + 32) in registers, the next
+    // row's loaded while this one runs
+    double g0 = 0.0, g1 = 0.0;
+    unsigned m0 = NONE16, m1 = NONE16;
+    auto load = [&](int rr) {
+      m0 = gl < bw ? mb[rr * bw + gl] : NONE16;
+      g0 = gl < bw ? gb[rr * bw + gl] : 0.0;
+      m1 = gl + 32 < bw ? mb[rr * bw + gl + 32] : NONE16;
+      g1 = gl + 32 < bw ? gb[rr * bw + gl + 32] : 0.0;
+    };
+    load(0);
+    for (int rr = 0; rr < rows; ++rr) {
+      const int i = i0 + rr;
+      const double cg0 = g0, cg1 = g1;
+      const unsigned cm0 = m0, cm1 = m1;
+      const double f0 = gl == 0 ? fprev : rf0, f1 = rf1;
+      rf0 = fr[(i - gl) & rmask];  // the next row's (lane 0's slot is replaced by fprev)
+      rf1 = fr[(i - 32 - gl) & rmask];
+      if (rr + 1 < rows) load(rr + 1);
+      const int j0 = i - 1 - gl, j1 = i - 33 - gl;
       double m;
       int bj;
       if constexpr (DIV_ONCE) {
-        // the row's winner as one integer key: (rr + 2^41 + 1) << 21 | j, 0 for none
-        // two pairs at a time, without a branch, so that their f64 chains
-        // overlap; a pair that is not ok reads slot 0 and gives key 0
-        long long key = 0;
-        for (int r0 = gl; r0 < bw; r0 += 64) {
-          long long kk[2];
+        long long key = max(pair_key(f0, cm0, cg0, j0), pair_key(f1, cm1, cg1, j1));
+        for (int r0 = gl + 64; r0 < bw; r0 += 64) {  // bw over 64: from shared memory
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int r = r0 + u * 32;
-            const unsigned w = r < bw ? terms[rr * bw + r] : NONE;
+            const unsigned w = r < bw ? mb[rr * bw + r] : NONE16;
+            const double g = r < bw ? gb[rr * bw + r] : 0.0;
             const int j = i - 1 - r;
-            const double x = __dsub_rn(__dadd_rn(fr[j & rmask], (double)(int)(w & 255u)),
-                                       gt[w == NONE ? 0u : w >> 8]);
-            const long long a = __double2ll_rn(round_half_away(__dmul_rn(x, 1000.0)));
-            kk[u] = w == NONE ? 0 : ((a + KEY_OFF) << J_BITS) | j;
+            key = max(key, pair_key(fr[j & rmask], w, g, j));
           }
-          key = max(key, max(kk[0], kk[1]));
         }
         const unsigned hi = __reduce_max_sync(FULL, (unsigned)(key >> 32));
         const unsigned lo =
@@ -213,18 +293,19 @@ __global__ void __launch_bounds__(WARPS * 32)
       } else {
         double best = -DBL_MAX;
         bj = -1;
-        for (int r = gl; r < bw; r += 32) {
-          const unsigned w = terms[rr * bw + r];
-          if (w == NONE) continue;
-          const int j = i - 1 - r;
-          const double x =
-              __dsub_rn(__dadd_rn(fr[j & rmask], (double)(int)(w & 255u)), gt[w >> 8]);
+        auto take = [&](double fj, unsigned w, double g, int j) {
+          if (w == NONE16) return;
+          const double x = __dsub_rn(__dadd_rn(fj, (double)(int)w), g);
           const double p = __ddiv_rn(round_half_away(__dmul_rn(x, 1000.0)), 1000.0);
           if (p > best || (p == best && j > bj)) {
             best = p;
             bj = j;
           }
-        }
+        };
+        take(f0, cm0, cg0, j0);
+        take(f1, cm1, cg1, j1);
+        for (int r = gl + 64; r < bw; r += 32)
+          take(fr[(i - 1 - r) & rmask], mb[rr * bw + r], gb[rr * bw + r], i - 1 - r);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
           const double ob = __shfl_xor_sync(FULL, best, off);
@@ -236,34 +317,40 @@ __global__ void __launch_bounds__(WARPS * 32)
         }
         m = best;
       }
+      const bool improved = m > k_f;
+      fprev = improved ? m : k_f;
       if (gl == 0) {
-        const bool improved = m > k_f;
-        const double fi = improved ? m : k_f;
         cm = fmax(cm, m);
-        fr[i & rmask] = fi;
-        f_out[row + i] = fi;
+        fr[i & rmask] = fprev;
+        f_out[row + i] = fprev;
         pred_out[row + i] = improved ? bj : -1;
       }
-      __syncwarp();  // publish f(i) to the other lanes
+      __syncwarp();  // publish f(i) to the ring
     }
+    pair_sync(rib);  // the block's terms may be overwritten; the next block is ready
   }
   if (gl == 0) cmax_out[b] = cm;
 }
 
+struct Config {
+  int ring, rb;  // f ring slots (a power of two above bw), rows a term block
+  size_t smem;   // dynamic shared memory a block
+};
+
+Config configure(int bw) {
+  Config c;
+  c.ring = 32;
+  while (c.ring <= bw) c.ring <<= 1;
+  c.rb = max(1, 640 / bw);  // rows a term block: 12 at bw 50
+  c.smem = (size_t)READS * group_bytes(c.ring, c.rb, bw);
+  return c;
+}
+
 template <bool DIV_ONCE>
-cudaError_t launch(const int* qb, const long long* tb, const long long* te, const uint8_t* valid,
-                   const double* gap_table, int B, int A, int k, int bw, int ring, int rb,
-                   int max_gap, int table_smem, size_t smem, double* f, int* pred, double* cmax,
-                   cudaStream_t st) {
-  auto kern = chain_dp_exact_kernel<DIV_ONCE>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, st>>>(
-      qb, tb, te, valid, gap_table, B, A, k, bw, ring, rb, max_gap, table_smem, f, pred, cmax);
-  return cudaGetLastError();
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(chain_dp_exact_kernel<DIV_ONCE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -275,18 +362,31 @@ extern "C" int vg_chain_dp_exact(const void* qb, const void* tb, const void* te,
                                  int k, int bw, int max_gap, int div_once, void* f, void* pred,
                                  void* cmax, void* stream) {
   if (B <= 0 || A <= 0) return (int)cudaGetLastError();
-  if (bw <= 0 || k < 0 || k > 255 || max_gap < 0 || max_gap >= (1 << 24) - 1)
-    return (int)cudaErrorInvalidValue;
-  int ring = 32;
-  while (ring <= bw) ring <<= 1;
-  const int rb = max(1, 640 / bw);  // rows a term block: 12 at bw 50
-  const size_t group_bytes = (size_t)WARPS * group_doubles(ring, rb, bw) * sizeof(double);
-  const size_t tab_bytes = (size_t)(max_gap + 1) * sizeof(double);
-  const int table_smem = tab_bytes + group_bytes <= SMEM_MAX;
-  const size_t smem = group_bytes + (table_smem ? tab_bytes : 0);
-  cudaStream_t st = (cudaStream_t)stream;
-  const auto run = div_once ? &launch<true> : &launch<false>;
-  return (int)run((const int*)qb, (const long long*)tb, (const long long*)te,
-                  (const uint8_t*)valid, (const double*)gap_table, B, A, k, bw, ring, rb, max_gap,
-                  table_smem, smem, (double*)f, (int*)pred, (double*)cmax, st);
+  if (bw <= 0 || k < 0 || k > 255 || max_gap < 0) return (int)cudaErrorInvalidValue;
+  const Config c = configure(bw);
+  const cudaError_t e = div_once ? prepare<true>(c.smem) : prepare<false>(c.smem);
+  if (e != cudaSuccess) return (int)e;
+  auto kern = div_once ? chain_dp_exact_kernel<true> : chain_dp_exact_kernel<false>;
+  kern<<<(B + READS - 1) / READS, THREADS, c.smem, (cudaStream_t)stream>>>(
+      (const int*)qb, (const long long*)tb, (const long long*)te, (const uint8_t*)valid,
+      (const double*)gap_table, B, A, k, bw, c.ring, c.rb, max_gap, (double*)f, (int*)pred,
+      (double*)cmax);
+  return (int)cudaGetLastError();
+}
+
+// out[0..2]: reads a block, blocks an SM keeps resident, dynamic shared
+// memory a block in bytes, at band bw
+extern "C" int vg_chain_dp_exact_occupancy(int bw, int div_once, int* out) {
+  if (bw <= 0) return (int)cudaErrorInvalidValue;
+  const Config c = configure(bw);
+  cudaError_t e = div_once ? prepare<true>(c.smem) : prepare<false>(c.smem);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, div_once ? chain_dp_exact_kernel<true> : chain_dp_exact_kernel<false>, THREADS,
+        c.smem);
+  out[0] = READS;
+  out[1] = blocks;
+  out[2] = (int)c.smem;
+  return (int)e;
 }

@@ -16,11 +16,14 @@ the global best proposed score.
     ``chain_dp_exact`` launches the CUDA kernel
     (kernels/csrc/chain_dp_exact.cu) on a CUDA tensor and runs
     ``chain_dp_exact_plain`` on a CPU tensor.  The kernel divides only
-    each row's winner where ``exact_divide_once`` says that is exact.
+    each row's winner where ``exact_divide_once`` says that is exact, and
+    runs each read on two warps: a producer of pair terms ahead of a
+    consumer of rows (``chain_dp_exact_occupancy``).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -281,8 +284,8 @@ def chain_dp_exact(qb, tb, te, valid, seed_length: int, bandwidth: int,
                         ("te", te, torch.int64), ("valid", valid, torch.bool)):
         if t.dtype != dt or t.shape != (B, A):
             raise ValueError(f"chain_dp_exact: {name} must be {dt} [{B}, {A}]")
-    if not 0 <= seed_length <= 255 or len(gap_table) - 1 >= (1 << 24) - 1:
-        raise ValueError("chain_dp_exact: needs a seed length up to 255 and max_gap below 2^24 - 1")
+    if not 0 <= seed_length <= 255:
+        raise ValueError("chain_dp_exact: needs a seed length up to 255")
     kernels.require_cuda("chain_dp_exact", qb, tb, te, valid)
     dev = qb.device
     table = _device_gap_table(gap_table, seed_length, dev)
@@ -300,6 +303,17 @@ def chain_dp_exact(qb, tb, te, valid, seed_length: int, bandwidth: int,
         "chain_dp_exact",
     )
     return f, pred, cmax
+
+
+def chain_dp_exact_occupancy(bandwidth: int, div_once: bool = True) -> dict:
+    """chain_dp_exact.cu's reads a block (two warps each), blocks an SM
+    keeps resident and dynamic shared memory a block in bytes at this
+    band, from the CUDA occupancy calculator.  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.lib().vg_chain_dp_exact_occupancy(bandwidth, int(div_once),
+                                                            ctypes.addressof(out)),
+                  "chain_dp_exact_occupancy")
+    return {"reads_a_block": out[0], "blocks_an_sm": out[1], "smem": out[2]}
 
 
 def chain_scores(qb, tb, te, valid, gap_table: np.ndarray, seed_length: int,
