@@ -41,12 +41,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
        launches now), on random batches (P 2/4/8, W 128/256/2048, V
        256/2048, problems with no positive cell and nv < V), and at W
        16,384 (B 8 x V 128, and V 8,192) held and timed in turns with K9;
-       K7 local POA, one warp a problem, for rows up to 256 columns, on
-       P 2/4/8 x W 32/64/128/256 x V 64/256/2,048 batches with far
-       predecessors past its ring, problems over its pin budget (its
-       backing store), a predecessor at and past its vertex, nv far
-       below V and nv = 0; its ptxas registers and spills, and its
-       occupancy at the rspoa batch shape;
+       K7 local POA, one warp a problem, for rows up to 256 columns, with
+       the host's backing-row counts, on P 2/4/8 x W 32/64/128/256 x V
+       64/256/2,048 batches with far predecessors past its ring, problems
+       over its pin budget (its backing store), a predecessor at and past
+       its vertex, nv far below V and nv = 0, and at V 2,048 and 8,192 on
+       a chain whose best run takes a far edge whose backing row ranks
+       behind far rows in every bitmap word; given one backing row too
+       few, tlen -1 on each problem short of rows, and the rspoa route
+       (``align_local_batch``) raises; its ptxas registers and spills,
+       and its occupancy at the rspoa batch shape;
        K9 local POA, one thread-block cluster a problem, for rows of
        512-16,384 columns, at every width x P 2/4/8 with far predecessors,
        pin overflow, a predecessor at and past its vertex and nv = 4 and
@@ -87,9 +91,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
      same reads: K7 and K5 launched, K4, K1 and K2 not, no subgraph GFA
      written, 95 % of reads aligned, and the first 256 reads
      byte-identical to ``--device cpu --precision exact``; on the
-     largest batch that run gave the local POA, K7 is held against its
+     largest batch that run gave the local POA, K7 (with the host's
+     backing-row counts, as the route called it) is held against its
      twin and K4 and K7 are timed in turns (K4, K7, K7, K4), through
      their wrappers and as the kernel alone on buffers allocated once;
+     that launch's backing rows, its device bytes by
+     ``local_problem_bytes`` and K7's peak device memory on it, held
+     under the route's byte budget;
   7. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
      K8, not K2, K3 or K6, and a subgraph over 8,192 vertices on the
@@ -930,14 +938,66 @@ def _ptxas(log, kernel):
     return out
 
 
+def _k7_short_of_rows(dev):
+    """K7 given one backing row too few on each problem that needs rows:
+    tlen -1 on those, the others as the twin gives them; then the rspoa
+    route (``align_local_batch``, its launches given one row too few)
+    raises rather than decode."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+    from vgaligner_tpu_torch.testing import random_local_batch, with_local_edge_cases
+
+    t = [torch.from_numpy(a).to(dev) for a in
+         with_local_edge_cases(random_local_batch(571, 8, 256, 4, 127, far_frac=0.3))]
+    back = PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+    tlen = PD.poa_local_warp(*t, np.maximum(back - 1, 0))[2].cpu().numpy()
+    want = PD.poa_local_plain(*t)[2].cpu().numpy()
+    if not (back > 0).any() or (tlen[back > 0] != -1).any() or \
+            (tlen[back == 0] != want[back == 0]).any():
+        raise AssertionError(f"poa_local_warp one backing row short: tlen {tlen.tolist()}, "
+                             f"rows {back.tolist()}, the twin's tlen {want.tolist()}")
+    nodes = ["ACGT"[c] for c in np.random.default_rng(572).integers(0, 4, 120)]
+    edges = [(b - 1, b) for b in range(1, 120)] + [(b - 12, b) for b in range(12, 120, 3)]
+    real = PD.local_chunks
+
+    def one_short(*args, **kw):
+        for s, e, arrs, rows in real(*args, **kw):
+            yield s, e, arrs, np.maximum(rows - 1, 0)
+
+    PD.local_chunks = one_short
+    try:
+        PD.align_local_batch([(nodes, edges, "".join(nodes[:100]))] * 3, dev)
+    except RuntimeError as e:
+        if "backing rows" not in str(e):
+            raise
+        said = str(e)
+    else:
+        raise AssertionError("the rspoa route decoded a problem K7 marked short of rows")
+    finally:
+        PD.local_chunks = real
+    print(f"[kernels] K7 one backing row short: tlen -1 on the {int((back > 0).sum())} problems "
+          f"that need rows, the other {int((back == 0).sum())} as the twin; the rspoa route "
+          f"raised: {said}")
+
+
 def phase_local_warp_kernel(dev, results):
     import torch
 
     from vgaligner_tpu_torch import kernels
     from vgaligner_tpu_torch.ops import poa_device as PD
-    from vgaligner_tpu_torch.testing import random_local_batch, with_local_edge_cases
+    from vgaligner_tpu_torch.testing import (far_rows_local_batch, random_local_batch,
+                                             with_local_edge_cases)
 
     errs, on_backing = [], 0
+    names = ("best", "tape", "tlen", "qend", "n_backing")
+
+    def check(label, t):
+        back = PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS)
+        got = PD.poa_local_warp(*t, back.cpu().numpy())
+        _check_equal(label, names, got, (*PD.poa_local_plain(*t), back), errs)
+        return got
+
     for P in (2, 4, 8):
         for W in (32, 64, 128, 256):
             for V in (64, 256, 2048):
@@ -946,20 +1006,25 @@ def phase_local_warp_kernel(dev, results):
                                                                far_frac=0.3))
                 near = random_local_batch(seed + 1, 8, V, P, W - 1, far_frac=0.0)
                 t = [torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(far, near)]
-                got = PD.poa_local_warp(*t)
-                want = PD.poa_local_plain(*t)
-                _check_equal(f"poa_local_warp P={P} W={W} V={V}",
-                             ("best", "tape", "tlen", "qend", "n_backing"), got,
-                             (*want, PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING,
-                                                           PD.LOCAL_PINS)), errs)
+                got = check(f"poa_local_warp P={P} W={W} V={V}", t)
                 nb = got[4].cpu()
                 if not bool((nb[:24] > 0).any()) or bool((nb[24:] != 0).any()):
                     raise AssertionError(f"poa_local_warp P={P} W={W} V={V}: batch lacks its "
                                          "edge cases")
                 on_backing += int((nb > 0).sum())
-                print(f"[kernels] poa_local_warp (K7) P={P} W={W} V={V} B=32: best/tape/tlen/"
-                      f"qend/n_backing equal; {int((nb > 0).sum())} problems on the backing "
-                      f"store (max {int(nb.max())} rows), max tlen {int(got[2].max())}")
+                print(f"[kernels] poa_local_warp (K7) P={P} W={W} V={V} B=32, the host's "
+                      f"backing rows: best/tape/tlen/qend/n_backing equal; "
+                      f"{int((nb > 0).sum())} problems on the backing store (max "
+                      f"{int(nb.max())} rows), max tlen {int(got[2].max())}")
+    for V in (2048, 8192):
+        nb = check(f"poa_local_warp far rows in the last bitmap words V={V}",
+                   [torch.from_numpy(a).to(dev) for a in far_rows_local_batch(V, 256)])[4]
+        if nb[0] <= 50 or nb[1] != 0:
+            raise AssertionError(f"the far-row batch at V {V} lost its backing rows or its pin")
+        print(f"[kernels] poa_local_warp (K7) V={V} W=256 P=2: a best run over a far edge in "
+              f"the last of {V // 32} bitmap words, its row on the backing store behind far rows "
+              f"in the words before ({int(nb[0])} rows), and over a pinned one: equal to the twin")
+    _k7_short_of_rows(dev)
     regs = _ptxas(kernels.build_log, "poa_local_warp_kernel")
     print("[kernels] K7 ptxas (P/C/NW: registers, spill store/load bytes): " + "; ".join(
         f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
@@ -1264,9 +1329,10 @@ def phase_sharded(work, prefix, gfa, fasta, main_out, card):
 
 def _local_kernel_only(args, kind):
     """One launch of K7 (``kind`` "warp"), K9 ("cluster") or K4
-    ("block") through its C entry on buffers allocated once
-    (K4's H and cell plane zeroed once): the kernel's own time, without
-    the wrapper's allocations and K4's zero-fill."""
+    ("block") through its C entry on buffers allocated once (K7's and
+    K9's backing rows those the host counts, K4's H and cell plane
+    zeroed once): the kernel's own time, without the wrapper's
+    allocations and K4's zero-fill."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -1283,19 +1349,14 @@ def _local_kernel_only(args, kind):
             torch.empty(B, dtype=torch.int32, device=dev)]
     ins = [a.data_ptr() for a in (vcodes, vpred, nv, q)]
     stream = kernels.stream_ptr(dev)
-    if kind == "cluster":
+    if kind in ("cluster", "warp"):
         off = torch.from_numpy(PD._back_offsets(vpred, nv, None)).to(dev)
         scratch = [off, torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev),
                    torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
         nb = torch.empty(B, dtype=torch.int32, device=dev)
         ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
-        return _c_call(so.vg_poa_local_cluster, ptrs, "poa_local_cluster", scratch, outs, nb)
-    if kind == "warp":
-        scratch = [torch.empty((B, V, W), dtype=torch.int16, device=dev),
-                   torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
-        nb = torch.empty(B, dtype=torch.int32, device=dev)
-        ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
-        return _c_call(so.vg_poa_local_warp, ptrs, "poa_local_warp", scratch, outs, nb)
+        name = f"poa_local_{kind}"
+        return _c_call(getattr(so, f"vg_{name}"), ptrs, name, scratch, outs, nb)
     scratch = [torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev),
                torch.zeros((B, V, W), dtype=torch.uint8, device=dev)]
     ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), stream]
@@ -1304,7 +1365,7 @@ def _local_kernel_only(args, kind):
 
 
 def _local_turns(args, new="K7", reps=10):
-    """K4 and ``new`` (K7, or K9 with the host's backing-row counts) on
+    """K4 and ``new`` (K7 or K9, with the host's backing-row counts) on
     the same CUDA tensors, after a warm-up, in turns K4, new, new, K4:
     through their wrappers, then as kernels alone.  Returns {(kernel,
     how): [ms, ms]} and the line that reports them."""
@@ -1312,11 +1373,9 @@ def _local_turns(args, new="K7", reps=10):
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
-    if new == "K7":
-        wrapper = lambda: PD.poa_local_warp(*args)  # noqa: E731
-    else:
-        back = PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
-        wrapper = lambda: PD.poa_local_cluster(*args, back)  # noqa: E731
+    back = PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+    kernel = PD.poa_local_warp if new == "K7" else PD.poa_local_cluster
+    wrapper = lambda: kernel(*args, back)  # noqa: E731
     fns = {("K4", "wrapper"): lambda: PD.poa_local_block(*args),
            (new, "wrapper"): wrapper,
            ("K4", "kernel"): _local_kernel_only(args, "block"),
@@ -1364,14 +1423,18 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     print(f"[rspoa] first {n} reads: chains and alignments GAF byte-identical "
           "to the --device cpu --precision exact run")
 
-    args = captured["poa_local"][0]
+    args, _w, kw = captured["poa_local"]
+    back = np.asarray(kw["back_rows"])
     want = PD.poa_local_plain(*args)
-    got = PD.poa_local_warp(*args)
+    got = PD.poa_local_warp(*args, back)
     names = ("best", "tape", "tlen", "qend", "n_backing")
     errs, errs4 = [], []
     _check_equal("poa_local_warp on the main reads' batch", names, got,
                  (*want, PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS)),
-                 errs)
+                 errs)  # n_backing: the kernel's count, equal to the host's back
+    if got[4].cpu().numpy().tolist() != back.tolist():
+        raise AssertionError("poa_local_warp on the main reads' batch: the route's back_rows "
+                             "differ from the kernel's count")
     _check_equal("poa_local (K4) on the main reads' batch", names[:4],
                  PD.poa_local_block(*args), want, errs4)
     turns, line = _local_turns(args)
@@ -1388,19 +1451,48 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     results["poa_local_warp"].update(
         max_abs_err=max(results["poa_local_warp"]["max_abs_err"], *errs),
         ms=sum(turns["K7", "wrapper"]) / 2, plain_ms=plain_ms, **bound)
-    torch.cuda.synchronize()
+    _local_warp_memory(args, back, card)
     return launches
+
+
+def _local_warp_memory(args, back, card):
+    """The main rspoa launch's backing rows, its device bytes by
+    ``local_problem_bytes``, and K7's peak device memory on it (above what
+    was allocated before the call), held under the route's byte budget."""
+    import torch
+
+    from vgaligner_tpu_torch.ops import poa_device as PD
+
+    B, V = args[0].shape
+    W, P = args[3].shape[1] + 1, args[1].shape[-1]
+    planned = int(PD.local_problem_bytes(V, W, P, back).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = PD.poa_local_warp(*args, back)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    if peak >= PD._LOCAL_BUDGET or planned >= PD._LOCAL_BUDGET:
+        raise AssertionError(f"K7 on the main rspoa launch: {peak} bytes at its peak, "
+                             f"{planned} planned, against a budget of {PD._LOCAL_BUDGET}")
+    print(f"[rspoa] the main launch B={B} V={V} W={W} P={P}: {int(back.sum())} backing rows in "
+          f"{int((back > 0).sum())} problems ({2 * W * int(back.sum())} B; a whole int16 plane "
+          f"would be {2 * B * V * W} B); local_problem_bytes {planned} B; K7's peak device "
+          f"memory {peak} B above the {before} allocated before it, under the budget of "
+          f"{PD._LOCAL_BUDGET} ({card})")
 
 
 def _keep_largest(module, name, work, captured):
     """Wrap ``module.name`` so that ``captured[name]`` keeps the arguments
-    of its call with the most ``work(args)``; returns the real function."""
+    of its call with the most ``work(args)`` (args, work, keyword
+    arguments); returns the real function."""
     real = getattr(module, name)
 
     def keep(*args, **kw):
         w = work(args)
         if name not in captured or w > captured[name][1]:
-            captured[name] = (args, w)
+            captured[name] = (args, w, kw)
         return real(*args, **kw)
 
     setattr(module, name, keep)

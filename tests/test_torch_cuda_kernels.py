@@ -14,10 +14,10 @@ import torch
 
 from vgaligner_tpu_torch.ops import chain as C
 from vgaligner_tpu_torch.ops import poa_device as PD
-from vgaligner_tpu_torch.testing import (far_jump_local_batch, random_local_batch,
-                                         random_poa_batch, sample_reads, wide_route_problems,
-                                         with_local_edge_cases, with_poa_edge_cases,
-                                         write_synthetic_gfa)
+from vgaligner_tpu_torch.testing import (far_jump_local_batch, far_rows_local_batch,
+                                         random_local_batch, random_poa_batch, sample_reads,
+                                         wide_route_problems, with_local_edge_cases,
+                                         with_poa_edge_cases, write_synthetic_gfa)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_device")]
 K = 11
@@ -355,6 +355,106 @@ def test_poa_local_warp_kernel_matches_plain(cuda_device, P, W, V):
 def test_poa_local_warp_kernel_rspoa_batch_shape(cuda_device):
     """The rspoa path's batch shape: 8,192 problems x V 256 x W 128, P 2."""
     _local_warp_matches_plain(cuda_device, random_local_batch(9, 8192, 256, 2, 127, far_frac=0.0))
+
+
+def _local_warp_with_rows(dev, arrs, back=None):
+    """K7 given the host's backing-row counts (``back``, or
+    ``backing_rows_plain``'s), as the route calls it: a backing store of
+    exactly those rows, every output equal to the twin's bit for bit, and
+    n_backing the host's count.  Returns the counts."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+    if back is None:
+        back = PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+    before = PD.kernels.launch_counts()["poa_local_warp"]
+    *got, n_backing = PD.poa_local_warp(*t, back)
+    assert PD.kernels.launch_counts()["poa_local_warp"] == before + 1
+    for name, g, w in zip(("best", "tape", "tlen", "qend"), got, PD.poa_local_plain(*t)):
+        assert torch.equal(g, w), name
+    assert n_backing.cpu().numpy().tolist() == list(back)
+    return back
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_poa_local_warp_takes_host_counted_backing_rows(cuda_device, P, W):
+    """Far-heavy problems (past the pins: backing rows) and near-only
+    ones (none) in one launch, with the host's counts."""
+    far = with_local_edge_cases(random_local_batch(700 + P * W, 12, 256, P, W - 1, far_frac=0.3))
+    near = random_local_batch(701 + P * W, 4, 256, P, W - 1, far_frac=0.0)
+    back = _local_warp_with_rows(cuda_device, [np.concatenate(x) for x in zip(far, near)])
+    assert (back[:12] > 0).any() and (back[12:] == 0).all()
+
+
+@pytest.mark.parametrize("B", [1, 3, 5])
+def test_poa_local_warp_odd_batches(cuda_device, B):
+    """B not a multiple of the block's 4 problems: the absent warps return
+    before reading back_off, and the last real problem keeps its rows."""
+    _local_warp_with_rows(cuda_device, random_local_batch(730 + B, B, 256, 4, 127, far_frac=0.3))
+
+
+@pytest.mark.parametrize("V", [2048, 8192])
+def test_poa_local_warp_far_rows_in_the_last_bitmap_words(cuda_device, V):
+    """More bitmap words than lanes (64 and 256): far rows across words
+    31/32 and 63/64 and the best run over a far edge whose backing row
+    ranks behind every other (problem 0), or whose row is pinned (1)."""
+    back = _local_warp_with_rows(cuda_device, far_rows_local_batch(V, 256))
+    assert back[0] > 50 and back[1] == 0
+
+
+def test_poa_local_warp_flags_too_few_backing_rows(cuda_device, monkeypatch):
+    """Given one backing row fewer than a problem needs, K7 writes and
+    reads no row past those it was given and marks the problem with tlen
+    -1 (the others unchanged), and the rspoa route's drain raises."""
+    arrs = with_local_edge_cases(random_local_batch(740, 8, 256, 4, 127, far_frac=0.3))
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    back = PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+    assert (back > 0).any() and (back == 0).any()
+    _best, _tape, tlen, _qend, n_backing = PD.poa_local_warp(*t, np.maximum(back - 1, 0))
+    want = PD.poa_local_plain(*t)[2].cpu().numpy()
+    tlen = tlen.cpu().numpy()
+    assert (tlen[back > 0] == -1).all() and (tlen[back == 0] == want[back == 0]).all()
+    assert n_backing.cpu().numpy().tolist() == back.tolist()
+    # the route: one-base nodes on a chain, every third also reached from
+    # 12 back (far rows past the pins), and a query read off the chain
+    nodes = ["ACGT"[c] for c in np.random.default_rng(741).integers(0, 4, 120)]
+    edges = [(b - 1, b) for b in range(1, 120)] + [(b - 12, b) for b in range(12, 120, 3)]
+    problems = [(nodes, edges, "".join(nodes[:100]))] * 3
+    real = PD.local_chunks
+
+    def one_short(*args, **kw):
+        for s, e, a, rows in real(*args, **kw):
+            assert (rows > 0).all()
+            yield s, e, a, rows - 1
+
+    before = PD.kernels.launch_counts()["poa_local_warp"]
+    monkeypatch.setattr(PD, "local_chunks", one_short)
+    with pytest.raises(RuntimeError, match="local POA route.*backing rows"):
+        PD.align_local_batch(problems, cuda_device)
+    assert PD.kernels.launch_counts()["poa_local_warp"] == before + 1
+
+
+@pytest.mark.parametrize("kernel", ["warp", "cluster"])
+def test_local_wrappers_back_to_back_with_pinned_offsets(cuda_device, kernel):
+    """K7 and K9 launched four times in a row on different batches with
+    the host's counts, with no wait between: each launch's offsets,
+    copied pinned and non-blocking, are its own, so every result equals
+    its twin."""
+    W = 128 if kernel == "warp" else 1024
+    fn = PD.poa_local_warp if kernel == "warp" else PD.poa_local_cluster
+    batches = [[torch.from_numpy(a).to(cuda_device) for a in with_local_edge_cases(
+        random_local_batch(750 + i, 8 + 4 * i, 256, 2 + 2 * (i % 2), W - 1, far_frac=0.3))]
+        for i in range(4)]
+    backs = [PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+             for t in batches]
+    assert all((b > 0).any() for b in backs)
+    torch.cuda.synchronize()
+    outs = [fn(*t, back) for t, back in zip(batches, backs)]
+    torch.cuda.synchronize()
+    for t, got in zip(batches, outs):
+        for g, w in zip(got[:4], PD.poa_local_plain(*t)):
+            assert torch.equal(g, w)
+        assert torch.equal(got[4], PD.backing_rows_plain(t[1], t[2], PD.LOCAL_RING,
+                                                          PD.LOCAL_PINS))
 
 
 def _local_cluster_matches_plain(dev, arrs):

@@ -20,6 +20,8 @@ the local route cut into launches under a byte budget; tolerance 0.
   * ``align_local_batch`` under a small byte budget: several launches of
     real problems only, equal to the unchunked route and to JAX's; the
     default budget takes the long reads' largest bucket in one launch;
+    ``local_problem_bytes`` at the cluster route's widths against a hand
+    count (the warp route's: tests/test_torch_local_warp.py);
   * the drain refuses a problem the kernel marks short of backing rows;
   * the kernel source's ring, pin, column and cluster sizes, and the
     edited copies ``kernel_probe`` times.
@@ -338,6 +340,20 @@ def test_default_budget_takes_the_long_read_bucket_whole():
     assert 128 << 20 < wide < 129 << 20 and PD._LOCAL_BUDGET // wide >= 8
     back = PD.local_problem_bytes(2048, 2048, 2, np.array([0, 10]))
     assert back[1] - back[0] == 10 * 2048 * 2
+
+
+@pytest.mark.parametrize("V,W,P,w", [(256, 512, 2, 512), (2048, 2048, 4, 2048),
+                                     (128, 384, 8, 512)])
+def test_cluster_route_problem_bytes_match_a_hand_count(V, W, P, w):
+    """Inputs (with the backing offset), cells, tape, scalars and the
+    counted int16 backing rows at the route's width w (384 runs at 512,
+    its query padded): the same count as the warp route's."""
+    assert PD.local_route(W) == ("poa_local_cluster", w)
+    back = np.array([0, 3, 25])
+    inputs = V + 4 * V * P + (W - 1) + 4 + 4 + 4  # codes, preds, q, nv, nq, offset
+    padded_q = (w - 1) if w != W else 0
+    want = [inputs + V * w + 4 * w + 4 * 4 + padded_q + 2 * w * r for r in back]
+    assert PD.local_problem_bytes(V, W, P, back).tolist() == want
 
 
 def test_drain_refuses_a_problem_short_of_backing_rows(monkeypatch):

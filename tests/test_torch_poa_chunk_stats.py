@@ -53,7 +53,7 @@ def test_census_of_the_main_path_at_a_small_size(tmp_path):
 def test_census_of_the_rspoa_path_at_a_small_size(tmp_path):
     """``--engine rspoa``: the local POA launches of ``map -p rspoa``, the
     real problems of each (V, L) bucket under the byte budget, no padding
-    copies."""
+    copies, each launch's device bytes counting its backing rows."""
     path = tmp_path / "rspoa.json"
     out = poa_chunk_stats.main(["--engine", "rspoa", "--reads", "96", "--backbone", "900",
                                 "--json", str(path)])
@@ -62,6 +62,9 @@ def test_census_of_the_rspoa_path_at_a_small_size(tmp_path):
     for c in out["chunks"]:
         assert c["W"] == 128 and c["V"] >= 256 and c["B"] == c["problems"]
         assert c["P"] in (2, 4, 8)
+        assert c["bytes"] == int(PD.local_problem_bytes(c["V"], 128, c["P"], [0]).sum()
+                                 * c["B"] + 2 * 128 * c["backing_rows_sum"])
+        assert 0 < c["bytes"] <= PD._LOCAL_BUDGET
     assert out["topological"] and 0 < out["nv_mean"] <= max(c["V"] for c in out["chunks"])
     assert out["backing_problems"] <= out["problems"]
 

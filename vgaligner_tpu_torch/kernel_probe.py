@@ -2,7 +2,8 @@
 a CTA, and the fast and exact chaining kernels against earlier versions.
 
     python -m vgaligner_tpu_torch.kernel_probe [--old-chain-dp PATH]
-        [--old-chain-dp-exact PATH] [--reps 10] [--json PATH]
+        [--old-chain-dp-exact PATH] [--old-local-warp PATH] [--reps 10]
+        [--json PATH]
 
 Maps chip_smoke.py's long reads (``testing.long_reads`` on
 ``write_synthetic_gfa`` seed 0, k = 11) on the card as the smoke's
@@ -38,7 +39,21 @@ into ``_build/probe/``:
     reads (the two keep different numbers of reads resident); in the
     same turns on both launches, the port's chain_dp_exact.cu with each
     of its design choices undone alone (``exact_variant_sources``),
-    each held against the twin too.
+    each held against the twin too;
+  * ``old_local_warp``: the poa_local_warp.cu at PATH, an earlier version
+    of the one-warp local POA kernel whose C entry takes no ``back_off``
+    and whose backing store is a whole int16 plane [B, V, W] indexed by
+    vertex (that file from a checkout of an earlier commit).  On the
+    rspoa route's largest launch of the main reads (the first 8,192,
+    mapped ``--precision exact``: 8,192 x V 256 x W 128, P 2) and on a
+    far-heavy random batch (1,024 x V 256 x W 128, P 2, ``far_frac``
+    0.3), it and the port's kernel (given the host's backing-row counts)
+    are held against ``poa_local_plain`` bit for bit, timed in turns
+    (old, new, new, old) through a wrapper (the parent's allocations and
+    ``poa_local_warp``) and as kernels alone on buffers allocated once,
+    and each wrapper's peak device memory above what was allocated
+    before it is read (``reset_peak_memory_stats``,
+    ``max_memory_allocated``).
 
 Each section runs when its PATH is given; the local cluster kernel's
 always does.
@@ -98,11 +113,13 @@ def exact_variant_sources(src: str) -> dict:
     return out
 
 
-def _captured_launches(dev):
+def _captured_launches(dev, main_local: bool = False):
     """The long reads' fast and exact chaining launches (qb, tb, te,
     valid), the main path's anchors of 8,192 reads (the same, tb/te
-    int64) and the local cluster kernel's largest batch (vcodes, vpred,
-    nv, q, nq)."""
+    int64), the local cluster kernel's largest batch (vcodes, vpred, nv,
+    q, nq) and, with ``main_local``, the one-warp local kernel's largest
+    launch of the same 8,192 reads on the rspoa route ((vcodes, vpred,
+    nv, q, nq), back_rows), else None."""
     from .graph import graph_from_gfa
     from .index import Index
     from .io.fastx import QuerySequence
@@ -115,6 +132,7 @@ def _captured_launches(dev):
     work = tempfile.mkdtemp(prefix="vg_kernel_probe_")
     got: dict = {}
     real_k1, real_k5, real_k9 = C.chain_dp, C.chain_dp_exact, PD.poa_local_cluster
+    real_k7 = PD.poa_local_warp
 
     def keep(name, size, real):
         def call(*args):
@@ -135,11 +153,19 @@ def _captured_launches(dev):
         Mapper(index, dev, precision="fast").map_reads(qs)
         chains = Mapper(index, dev, precision="exact").map_reads(qs)
         PoaAligner(index, dev, engine=PoaEngine.RSPOA).best_alignments_for_queries(chains)
-        main = _main_anchors(index, sample_reads(graph, 12288, 100, seed=77)[:8192], dev)
+        main_reads = sample_reads(graph, 12288, 100, seed=77)[:8192]
+        main = _main_anchors(index, main_reads, dev)
+        if main_local:
+            PD.poa_local_warp = keep("k7", lambda a: a[0].shape[0], real_k7)
+            chains = Mapper(index, dev, precision="exact").map_reads(
+                [QuerySequence(f"read{i}", r) for i, r in enumerate(main_reads)])
+            PoaAligner(index, dev, engine=PoaEngine.RSPOA).best_alignments_for_queries(chains)
     finally:
         C.chain_dp, C.chain_dp_exact, PD.poa_local_cluster = real_k1, real_k5, real_k9
+        PD.poa_local_warp = real_k7
         shutil.rmtree(work, ignore_errors=True)
-    return got["k1"][0][:4], got["k5"][0][:4], main, got["k9"][0][:5]
+    k7 = (got["k7"][0][:5], got["k7"][0][5]) if main_local else None
+    return got["k1"][0][:4], got["k5"][0][:4], main, got["k9"][0][:5], k7
 
 
 def _main_anchors(index, reads, dev):
@@ -157,6 +183,18 @@ def _main_anchors(index, reads, dev):
     anchors = lookup_and_materialize_anchors(device_index(index, dev), w, wv, 256)
     _o, qb, tb, te, valid = sort_anchors(anchors.qb, anchors.tb, anchors.te, anchors.valid)
     return qb.contiguous(), tb.contiguous(), te.contiguous(), valid.contiguous()
+
+
+def _holding(call, *buffers):
+    """``call`` that holds ``buffers``, the tensors behind its pointers,
+    for as long as it lives: a closure over the pointers alone would let
+    the allocator hand their memory to the next tensor while the kernel
+    still writes (or reads its offsets) there."""
+    def run():
+        call()
+        return buffers
+
+    return run
 
 
 def _int32_anchors(args):
@@ -182,7 +220,7 @@ def _chain_launcher(entry, args):
             torch.empty(B, dtype=torch.int32, device=dev))
     ptrs = ([x.data_ptr() for x in args] + [B, A, K, 50, 1000] + [o.data_ptr() for o in outs]
             + [kernels.stream_ptr(dev)])
-    return (lambda: kernels.check(entry(*ptrs), "kernel_probe chain_dp")), outs
+    return _holding(lambda: kernels.check(entry(*ptrs), "kernel_probe chain_dp"), outs), outs
 
 
 def _exact_launcher(entry, args):
@@ -205,11 +243,8 @@ def _exact_launcher(entry, args):
     ptrs = ([x.data_ptr() for x in args] + [tab.data_ptr(), B, A, K, 50, 1000, div_once]
             + [o.data_ptr() for o in outs] + [kernels.stream_ptr(dev)])
 
-    def call():
-        kernels.check(entry(*ptrs), "kernel_probe chain_dp_exact")
-        return tab
-
-    return call, outs
+    return _holding(lambda: kernels.check(entry(*ptrs), "kernel_probe chain_dp_exact"),
+                    tab, outs), outs
 
 
 def _local_launcher(so, args):
@@ -232,7 +267,136 @@ def _local_launcher(so, args):
             *(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
     ptrs = ([x.data_ptr() for x in args[:4]] + [B, V, P, L]
             + [x.data_ptr() for x in scratch + outs] + [kernels.stream_ptr(dev)])
-    return (lambda: kernels.check(so.vg_poa_local_cluster(*ptrs), "kernel_probe local")), outs
+    return _holding(lambda: kernels.check(so.vg_poa_local_cluster(*ptrs), "kernel_probe local"),
+                    scratch, outs), outs
+
+
+def _warp_launcher(entry, args, back, old):
+    """A call of a ``vg_poa_local_warp`` C entry on ``args`` with its
+    buffers allocated once -> (call, (best, tape, tlen, qend, n_backing)):
+    with ``old``, the earlier entry (no back_off; a whole int16 plane
+    [B, V, W]), else the port's (the ``back`` rows the host counted)."""
+    import torch
+
+    from . import kernels
+    from .ops import poa_device as PD
+
+    vcodes, vpred, nv, q, _nq = args
+    B, V = vcodes.shape
+    P, L = vpred.shape[-1], q.shape[1]
+    dev = vcodes.device
+    if old:
+        scratch = (torch.empty((B, V, L + 1), dtype=torch.int16, device=dev),
+                   torch.empty((B, V, L + 1), dtype=torch.uint8, device=dev))
+    else:
+        off = torch.from_numpy(PD._back_offsets(vpred, nv, back)).to(dev)
+        scratch = (off, torch.empty((max(int(off[-1]), 1), L + 1), dtype=torch.int16, device=dev),
+                   torch.empty((B, V, L + 1), dtype=torch.uint8, device=dev))
+    outs = (torch.empty(B, dtype=torch.float32, device=dev),
+            torch.empty((B, L + 1), dtype=torch.int32, device=dev),
+            *(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
+    ptrs = ([x.data_ptr() for x in args[:4]] + [B, V, P, L]
+            + [x.data_ptr() for x in scratch + outs] + [kernels.stream_ptr(dev)])
+    return _holding(lambda: kernels.check(entry(*ptrs), "kernel_probe local warp"),
+                    scratch, outs), outs
+
+
+def _old_warp_wrapper(entry, args):
+    """The earlier ``poa_local_warp`` wrapper on ``entry``: its buffers,
+    the whole int16 plane [B, V, W] among them, allocated at each call ->
+    (best, tape, tlen, qend, n_backing)."""
+    import torch
+
+    from . import kernels
+
+    vcodes, vpred, nv, q, _nq = args
+    B, V = vcodes.shape
+    P, L = vpred.shape[-1], q.shape[1]
+    dev = vcodes.device
+    bufs = (torch.empty((B, V, L + 1), dtype=torch.int16, device=dev),
+            torch.empty((B, V, L + 1), dtype=torch.uint8, device=dev),
+            torch.empty(B, dtype=torch.float32, device=dev),
+            torch.empty((B, L + 1), dtype=torch.int32, device=dev),
+            *(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
+    kernels.check(entry(*(x.data_ptr() for x in args[:4]), B, V, P, L,
+                        *(x.data_ptr() for x in bufs), kernels.stream_ptr(dev)),
+                  "kernel_probe old local warp")
+    return bufs[2:]
+
+
+def _peak_bytes(fn) -> int:
+    """Device memory ``fn()`` allocates at its peak above what was
+    allocated before it, its outputs held until the peak is read."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def _local_warp_section(old_entry, main_k7, card, reps, out):
+    """The one-warp local kernel against the version at PATH (module
+    docstring) on the main reads' rspoa launch ``main_k7`` ((args,
+    back_rows)) and on a far-heavy random batch."""
+    import numpy as np
+    import torch
+
+    from . import kernels
+    from .ops import poa_device as PD
+    from .poa_cluster_probe import _ms
+    from .testing import random_local_batch, with_local_edge_cases
+
+    dev = main_k7[0][0].device
+    far = [torch.from_numpy(a).to(dev) for a in with_local_edge_cases(
+        random_local_batch(1303, 1024, 256, 2, 127, far_frac=0.3))]
+    far_back = PD.backing_rows_plain(far[1], far[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
+    new_entry = kernels.lib().vg_poa_local_warp
+    for label, (args, back) in (("main", main_k7), ("far", (far, far_back))):
+        back = np.asarray(back)
+        want = (*PD.poa_local_plain(*args),
+                PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS))
+        wrappers = {"old": lambda: _old_warp_wrapper(old_entry, args),
+                    "new": lambda: PD.poa_local_warp(*args, back)}
+        alone = {}
+        for name, entry in (("old", old_entry), ("new", new_entry)):
+            _held(f"poa_local_warp ({name}) through its wrapper on the {label} launch",
+                  wrappers[name](), want)
+            call, got = _warp_launcher(entry, args, back, name == "old")
+            call()
+            _held(f"poa_local_warp ({name}) alone on the {label} launch", got, want)
+            alone[name] = call
+        ms = {"wrapper": _turns(wrappers, reps), "alone": _turns(alone, reps)}
+        off = PD._back_offsets(args[1], args[2], back)
+        ms["offsets"] = _ms(lambda: PD._pinned_offsets(off, dev), reps)
+        peak = {name: _peak_bytes(fn) for name, fn in wrappers.items()}
+        B, V = args[0].shape
+        W, P = args[3].shape[1] + 1, args[1].shape[-1]
+        rows = int(back.sum())
+        out[f"local_warp_{label}"] = {
+            "B": B, "V": V, "W": W, "P": P, "nv_mean": float(args[2].float().mean()),
+            "backing_rows": rows, "backing_problems": int((back > 0).sum()),
+            "plane_bytes": 2 * B * V * W, "rows_bytes": 2 * W * rows, "ms": ms,
+            "peak_bytes": peak,
+            "problem_bytes": int(PD.local_problem_bytes(V, W, P, back).sum())}
+        r = out[f"local_warp_{label}"]
+        print(f"[probe] poa_local_warp on the {label} launch B {B} x V {V} x W {W}, P {P} (nv mean "
+              f"{r['nv_mean']:.2f}), {rows} backing rows in {r['backing_problems']} problems: old "
+              f"and new equal to the twin bit for bit; in turns (old, new, new, old) through the "
+              f"wrappers {ms['wrapper']['old'][0]:.4f}, {ms['wrapper']['new'][0]:.4f}, "
+              f"{ms['wrapper']['new'][1]:.4f}, {ms['wrapper']['old'][1]:.4f} ms, kernels alone "
+              f"{ms['alone']['old'][0]:.4f}, {ms['alone']['new'][0]:.4f}, "
+              f"{ms['alone']['new'][1]:.4f}, {ms['alone']['old'][1]:.4f} ms; the new wrapper's "
+              f"offsets alone (pinned copy, {4 * (B + 1)} B) {ms['offsets']:.4f} ms; peak device "
+              f"memory "
+              f"old {peak['old']} B, new {peak['new']} B (old - new {peak['old'] - peak['new']}; "
+              f"the old plane {r['plane_bytes']} less the counted rows {r['rows_bytes']} = "
+              f"{r['plane_bytes'] - r['rows_bytes']}); local_problem_bytes {r['problem_bytes']} "
+              f"({card})")
 
 
 def _held(label, got, want):
@@ -318,6 +482,8 @@ def main(argv=None) -> dict:
                     help="another version of kernels/csrc/chain_dp.cu to time against")
     ap.add_argument("--old-chain-dp-exact",
                     help="another version of kernels/csrc/chain_dp_exact.cu to time against")
+    ap.add_argument("--old-local-warp",
+                    help="another version of kernels/csrc/poa_local_warp.cu to time against")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--json", dest="json_path")
     args = ap.parse_args(argv)
@@ -330,7 +496,8 @@ def main(argv=None) -> dict:
     with open(os.path.join(CSRC, "poa_local_cluster.cu")) as fh:
         sources = slice_sources(fh.read())
     for name, path in (("old_chain_dp", args.old_chain_dp),
-                       ("old_chain_dp_exact", args.old_chain_dp_exact)):
+                       ("old_chain_dp_exact", args.old_chain_dp_exact),
+                       ("old_local_warp", args.old_local_warp)):
         if path:
             with open(path) as fh:
                 sources[name] = fh.read()
@@ -346,10 +513,13 @@ def main(argv=None) -> dict:
         elif name.startswith(("old_chain_dp_exact", "exact_")):
             so.vg_chain_dp_exact.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 4
             so.vg_chain_dp_exact.restype = ci
+        elif name == "old_local_warp":
+            so.vg_poa_local_warp.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 8
+            so.vg_poa_local_warp.restype = ci
         else:
             so.vg_poa_local_cluster.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 9
             so.vg_poa_local_cluster.restype = ci
-    long_k1, long_k5, main8, batch = _captured_launches(dev)
+    long_k1, long_k5, main8, batch, main_k7 = _captured_launches(dev, bool(args.old_local_warp))
     out = {"card": card, "registers": {n: regs for n, (_so, regs) in libs.items()}}
 
     # the local cluster kernel's columns a CTA
@@ -398,6 +568,10 @@ def main(argv=None) -> dict:
         print("[probe] ptxas (<false>, <true>): " + "; ".join(
             f"{n}: " + ", ".join(out["registers"][n])
             for n in ["old_chain_dp_exact", *(f"exact_{v}" for v in variants)]))
+    # the one-warp local kernel against the version at PATH
+    if args.old_local_warp:
+        _local_warp_section(libs["old_local_warp"][0].vg_poa_local_warp, main_k7, card,
+                            args.reps, out)
     if args.json_path:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_path)), exist_ok=True)
         with open(args.json_path, "w") as fh:

@@ -161,7 +161,7 @@ def lib() -> ctypes.CDLL:
         so.vg_chain_dp_exact_occupancy.restype = ci
         so.vg_poa_local.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 7
         so.vg_poa_local.restype = ci
-        so.vg_poa_local_warp.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 8
+        so.vg_poa_local_warp.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 9
         so.vg_poa_local_warp.restype = ci
         so.vg_poa_local_warp_occupancy.argtypes = [ci, ci, ci, vp]
         so.vg_poa_local_warp_occupancy.restype = ci

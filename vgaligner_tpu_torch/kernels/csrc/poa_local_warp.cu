@@ -39,10 +39,18 @@
 //    Before the first row the warp marks in a per-problem bitmap every
 //    vertex that some later vertex v < nv reads from that far; the first
 //    PINS of them, in ascending id, get pinned rows; the rest are written
-//    to a global int16 backing store [B, V, W] and read back from there
-//    (only those rows; n_backing[b] counts them).  A dead slot, and a
-//    predecessor at or past its vertex, read 0: in the plain version that
-//    row is the virtual row V or a row not written yet, all zeros;
+//    to a global int16 backing store and read back from there
+//    (n_backing[b] counts them).  The store holds only the rows the host
+//    counted for each problem (back_off: each problem's first row, so a
+//    launch takes [sum of its problems' rows, W] int16, not [B, V, W]);
+//    a far vertex's row is its rank among its problem's unpinned far
+//    vertices (a running count for writes, which go out in ascending v;
+//    the warp's count from the bitmap for reads).  A problem whose far
+//    vertices need more rows than it was given (the host and the kernel
+//    disagree) writes and reads no row past them and gets tlen -1, which
+//    the caller treats as an error.  A dead slot, and a predecessor at or
+//    past its vertex, read 0: in the plain version that row is the
+//    virtual row V or a row not written yet, all zeros;
 //  * predecessor ids and codes: lane l holds those of vertex 32k + l for
 //    the current and the next block of 32 rows; a row takes its own by
 //    shuffle;
@@ -167,11 +175,26 @@ __device__ __forceinline__ void load_meta(const int* vp_b, const int8_t* vc_b, i
   }
 }
 
+// a far vertex's row in its problem's backing store: the far vertices
+// below v that are not pinned, counted by the whole warp (v is the same
+// in every lane; one bitmap word a lane, every word below v's, then one
+// redux.sync)
+__device__ __forceinline__ int back_rank(const unsigned* bm, int v, int lane) {
+  const int wv = v >> 5;
+  int cnt = 0;
+  for (int i = lane; i <= wv; i += 32) {
+    const unsigned m = bm[i];
+    cnt += __popc(i == wv ? m & ((1u << (v & 31)) - 1u) : m);
+  }
+  return __reduce_add_sync(FULL, cnt);
+}
+
 template <int P, int C, int NW>
 __global__ void __launch_bounds__(NW * 32, 8)
     poa_local_warp_kernel(const int8_t* __restrict__ vcodes, const int* __restrict__ vpred,
                           const int* __restrict__ nv, const int8_t* __restrict__ q, int B, int V,
-                          int L, int bm_words, int16_t* __restrict__ backing,
+                          int L, int bm_words, const int* __restrict__ back_off,
+                          int16_t* __restrict__ backing,
                           uint8_t* __restrict__ cells, float* __restrict__ best_out,
                           int* __restrict__ tape, int* __restrict__ tlen,
                           int* __restrict__ qend, int* __restrict__ n_backing) {
@@ -226,11 +249,17 @@ __global__ void __launch_bounds__(NW * 32, 8)
       if (pin[k] >= 0) bm[pin[k] >> 5] &= ~(1u << (pin[k] & 31));
   }
   __syncwarp();
-  int n_back = 0;
-  for (int w = lane; w < bm_words; w += 32) n_back += __popc(bm[w]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) n_back += __shfl_xor_sync(FULL, n_back, off);
-  if (lane == 0) n_backing[b] = n_back;
+  int n_far = 0;  // this problem's far vertices past the pins
+  for (int w = lane; w < bm_words; w += 32) n_far += __popc(bm[w]);
+  n_far = __reduce_add_sync(FULL, n_far);
+  if (lane == 0) n_backing[b] = n_far;
+  // the rows the host counted for this problem; a row past them is
+  // neither written nor read, and tlen says -1
+  const int n_back = min(n_far, back_off[b + 1] - back_off[b]);
+  int16_t* back_b = backing + (size_t)back_off[b] * W;
+  // backing rows written so far: rows go out in ascending v, so this is
+  // the rank of the next one (back_rank's count for reads)
+  int n_written = 0;
 
   // (2) the lane's query codes, -1 where no vertex code matches (N, and
   // column 0, whose row value is 0)
@@ -248,7 +277,6 @@ __global__ void __launch_bounds__(NW * 32, 8)
   load_meta<P>(vp_b, vc_b, 32 + lane, nvb, nxt_pr, nxt_code);
   int tbest = 0, tv = 0, tj = 0;
   uint8_t* cells_b = cells + (size_t)b * V * W;
-  int16_t* back_b = backing + (size_t)b * V * W;
 
   for (int v = 0; v < nvb; ++v) {
     const int vl = v & 31;
@@ -270,18 +298,27 @@ __global__ void __launch_bounds__(NW * 32, 8)
     for (int p = 0; p < P; ++p) {
       const int pp = __shfl_sync(FULL, cur_pr[p], vl);
       if (pp >= 0 && pp < v) {  // a dead slot, or one at or past v, reads 0
-        const int16_t* src;
+        const int16_t* src = nullptr;  // nullptr: a backing row past n_back, read as 0
         if (v - pp <= RING) {
           src = rows + (pp & (SLOTS - 1)) * W;
         } else {
-          src = back_b + (size_t)pp * W;
 #pragma unroll
           for (int k = 0; k < PINS; ++k)
             if (pin[k] == pp) src = rows + (SLOTS + k) * W;
+          if (src == nullptr) {
+            const int rank = back_rank(bm, pp, lane);
+            if (rank < n_back) src = back_b + (size_t)rank * W;
+          }
         }
         int own[C];
-        load_own<C>(src, lane, own);
-        const int left = lane > 0 ? (int)src[j0 - 1] : 0;  // column j0 - 1
+        int left = 0;  // column j0 - 1
+        if (src != nullptr) {
+          load_own<C>(src, lane, own);
+          if (lane > 0) left = src[j0 - 1];
+        } else {
+#pragma unroll
+          for (int c = 0; c < C; ++c) own[c] = 0;
+        }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const int cand = c == 0 ? left : own[c > 0 ? c - 1 : 0];
@@ -317,8 +354,10 @@ __global__ void __launch_bounds__(NW * 32, 8)
       for (int k = 0; k < PINS; ++k)
         if (pin[k] == v) store_own<C>(rows + (SLOTS + k) * W, lane, hrow);
     }
-    if (n_back > 0 && ((bm[v >> 5] >> (v & 31)) & 1u))
-      store_own<C>(back_b + (size_t)v * W, lane, hrow);
+    if (n_written < n_back && ((bm[v >> 5] >> (v & 31)) & 1u)) {
+      store_own<C>(back_b + (size_t)n_written * W, lane, hrow);
+      ++n_written;
+    }
     store_cells<C>(cells_b + (size_t)v * W, lane, cell);
     __syncwarp();  // row v visible to the later rows' lanes
   }
@@ -365,7 +404,7 @@ __global__ void __launch_bounds__(NW * 32, 8)
   for (int t = n + lane; t < T; t += 32) tp[t] = END_FILL;
   if (lane == 0) {
     best_out[b] = (float)tbest;
-    tlen[b] = n;
+    tlen[b] = n_back < n_far ? -1 : n;
     qend[b] = tj;
   }
 }
@@ -388,14 +427,15 @@ cudaError_t prepare(int V, size_t* smem) {
 
 template <int P, int C>
 cudaError_t launch(int B, int V, int L, cudaStream_t st, const int8_t* vcodes, const int* vpred,
-                   const int* nv, const int8_t* q, int16_t* backing, uint8_t* cells,
-                   float* best, int* tape, int* tlen, int* qend, int* n_backing) {
+                   const int* nv, const int8_t* q, const int* back_off, int16_t* backing,
+                   uint8_t* cells, float* best, int* tape, int* tlen, int* qend,
+                   int* n_backing) {
   size_t smem;
   cudaError_t e = prepare<P, C>(V, &smem);
   if (e != cudaSuccess) return e;
   poa_local_warp_kernel<P, C, NW><<<(B + NW - 1) / NW, NW * 32, smem, st>>>(
-      vcodes, vpred, nv, q, B, V, L, bitmap_words(V), backing, cells, best, tape, tlen, qend,
-      n_backing);
+      vcodes, vpred, nv, q, B, V, L, bitmap_words(V), back_off, backing, cells, best, tape, tlen,
+      qend, n_backing);
   return cudaGetLastError();
 }
 
@@ -432,17 +472,20 @@ cudaError_t occupancy(int V, int* out) {
     default: return (int)cudaErrorInvalidValue;                       \
   }
 
+// back_off [B + 1] int32: problem b's backing rows are [back_off[b],
+// back_off[b + 1]) of backing [back_off[B], W] int16
 extern "C" int vg_poa_local_warp(const void* vcodes, const void* vpred, const void* nv,
-                                 const void* q, int B, int V, int P, int L, void* backing,
-                                 void* cells, void* best, void* tape, void* tlen, void* qend,
-                                 void* n_backing, void* stream) {
+                                 const void* q, int B, int V, int P, int L, const void* back_off,
+                                 void* backing, void* cells, void* best, void* tape, void* tlen,
+                                 void* qend, void* n_backing, void* stream) {
   const int W = L + 1;
   if (B <= 0) return (int)cudaGetLastError();
   if (W % 32 != 0 || W > 256 || V <= 0) return (int)cudaErrorInvalidValue;
   const int C = W / 32;
   VG_LW_SWITCH(launch, B, V, L, (cudaStream_t)stream, (const int8_t*)vcodes, (const int*)vpred,
-               (const int*)nv, (const int8_t*)q, (int16_t*)backing, (uint8_t*)cells,
-               (float*)best, (int*)tape, (int*)tlen, (int*)qend, (int*)n_backing)
+               (const int*)nv, (const int8_t*)q, (const int*)back_off, (int16_t*)backing,
+               (uint8_t*)cells, (float*)best, (int*)tape, (int*)tlen, (int*)qend,
+               (int*)n_backing)
 }
 
 // out[0..2]: problems (warps) a block holds, blocks an SM keeps resident,

@@ -405,7 +405,8 @@ def _back_offsets(vpred, nv, back_rows, ring: int = LOCAL_RING,
                   pins: int = LOCAL_PINS) -> np.ndarray:
     """[B + 1] int32 first backing row of each problem (and the total)
     for a kernel that sizes its backing store by counted rows
-    (``poa_dp_tb``, ``poa_dp_tb_cluster``, ``poa_local_cluster``);
+    (``poa_dp_tb``, ``poa_dp_tb_cluster``, ``poa_local_warp``,
+    ``poa_local_cluster``);
     ``back_rows`` is the host's count per problem, or None to count here
     at ``ring`` and ``pins`` (which waits for the device)."""
     if back_rows is None:
@@ -415,6 +416,13 @@ def _back_offsets(vpred, nv, back_rows, ring: int = LOCAL_RING,
     if off[-1] >= 1 << 31:
         raise ValueError("over 2^31 backing rows in one launch")
     return off.astype(np.int32)
+
+
+def _pinned_offsets(off: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``_back_offsets``' array on ``dev``, copied from pinned memory
+    without blocking: a copy from pageable memory would wait for the
+    stream, so a launch given its counts would wait for the last one."""
+    return torch.from_numpy(off).pin_memory().to(dev, non_blocking=True)
 
 
 def _dp_tb_plain(vcodes, vpred, is_sink, nv, q, nq, init_row):
@@ -435,9 +443,7 @@ def _dp_tb_buffers(vcodes, vpred, nv, W: int, back_rows):
     dev = vcodes.device
     off = _back_offsets(vpred, nv, back_rows, TB_RING, TB_PINS)
     i32 = torch.int32
-    # pinned and non-blocking: a copy from pageable memory would wait for
-    # the stream, so a launch given its counts would wait for the last one
-    return (torch.from_numpy(off).pin_memory().to(dev, non_blocking=True),
+    return (_pinned_offsets(off, dev),
             torch.empty((max(int(off[-1]), 1), 3 * W), dtype=torch.float32, device=dev),
             torch.empty(B, dtype=torch.float32, device=dev), torch.empty(B, dtype=i32, device=dev),
             torch.empty((B, V, W), dtype=i32, device=dev),
@@ -965,18 +971,19 @@ def local_route(W: int) -> Tuple[str, int]:
 def poa_local(vcodes, vpred, nv, q, nq, back_rows=None):
     """Local gapless DP + traceback, by row width W = L + 1:
     ``poa_local_warp`` for W in LOCAL_WARP_WIDTHS (up to 256 columns),
-    ``poa_local_cluster`` for W in CLUSTER_WIDTHS (512-16,384; it takes
-    ``back_rows``); a row of another width up to 16,384 is padded on the
+    ``poa_local_cluster`` for W in CLUSTER_WIDTHS (512-16,384); both take
+    ``back_rows``.  A row of another width up to 16,384 is padded on the
     right to the next of those widths (``pad_row``, exact) and its tape
     cut back to W entries.  Each runs the plain twin for CPU tensors, and
     ``poa_local_block`` is launched at no width.  Same arguments and
-    outputs as ``poa_local_plain``."""
+    outputs as ``poa_local_plain``, except tlen -1 for a problem that
+    needs more backing rows than ``back_rows`` gave it."""
     W = q.shape[1] + 1
     kernel, w = local_route(W)
     if w != W:
         q = pad_row(q, None, w)[0]
     if kernel == "poa_local_warp":
-        best, tape, tlen, qend = poa_local_warp(vcodes, vpred, nv, q, nq)[:4]
+        best, tape, tlen, qend = poa_local_warp(vcodes, vpred, nv, q, nq, back_rows)[:4]
     else:
         best, tape, tlen, qend = poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows)[:4]
     return best, tape[:, :W], tlen, qend
@@ -1013,14 +1020,36 @@ def poa_local_block(vcodes, vpred, nv, q, nq):
     return best, tape, tlen, qend
 
 
-def poa_local_warp(vcodes, vpred, nv, q, nq):
+def _local_buffers(vcodes, vpred, nv, W: int, back_rows):
+    """The local POA kernels' device buffers for a batch of rows of W
+    columns: back_off [B + 1] (``_back_offsets`` at LOCAL_RING,
+    LOCAL_PINS), the backing store [its rows, W] int16, cells [B, V, W]
+    u8 (neither zeroed: only the host-counted rows exist, and the kernels
+    write every cell a walk can read), best, tape [B, W], tlen, qend and
+    n_backing."""
+    B, V = vcodes.shape
+    dev = vcodes.device
+    off = _back_offsets(vpred, nv, back_rows)
+    i32 = torch.int32
+    return (_pinned_offsets(off, dev),
+            torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev),
+            torch.empty((B, V, W), dtype=torch.uint8, device=dev),
+            torch.empty(B, dtype=torch.float32, device=dev),
+            torch.empty((B, W), dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev),
+            torch.empty(B, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev))
+
+
+def poa_local_warp(vcodes, vpred, nv, q, nq, back_rows=None):
     """Local gapless DP + traceback, one warp a problem: the CUDA kernel
     (kernels/csrc/poa_local_warp.cu) for CUDA tensors with W = L + 1 in
     LOCAL_WARP_WIDTHS, ``poa_local_plain`` for CPU tensors.  Same
-    arguments as ``poa_local`` -> (best, tape, tlen, qend, n_backing): the
-    first four as ``poa_local_plain`` gives them, and n_backing [B] int32
-    the rows each problem kept in the kernel's backing store
-    (``backing_rows_plain`` at LOCAL_RING, LOCAL_PINS)."""
+    arguments as ``poa_local``, plus ``back_rows`` (the host's
+    ``backing_rows_plain`` at LOCAL_RING, LOCAL_PINS per problem, which
+    sizes the backing store; None counts them here) -> (best, tape, tlen,
+    qend, n_backing): the first four as ``poa_local_plain`` gives them,
+    except tlen -1 for a problem that needs more backing rows than
+    ``back_rows`` gave it, and n_backing [B] int32 the kernel's own count
+    of backing rows."""
     if vcodes.device.type == "cpu":
         return (*poa_local_plain(vcodes, vpred, nv, q, nq),
                 backing_rows_plain(vpred, nv, LOCAL_RING, LOCAL_PINS))
@@ -1028,26 +1057,16 @@ def poa_local_warp(vcodes, vpred, nv, q, nq):
     W = L + 1
     if W not in LOCAL_WARP_WIDTHS:
         raise ValueError(f"poa_local_warp: unsupported row width W={W} {LOCAL_WARP_WIDTHS}")
-    dev = vcodes.device
-    # never zeroed: the kernel writes every cell a walk can read, and
-    # only the backing rows of n_backing are written and read
-    backing = torch.empty((B, V, W), dtype=torch.int16, device=dev)
-    cells = torch.empty((B, V, W), dtype=torch.uint8, device=dev)
-    best = torch.empty(B, dtype=torch.float32, device=dev)
-    tape = torch.empty((B, W), dtype=torch.int32, device=dev)
-    tlen = torch.empty(B, dtype=torch.int32, device=dev)
-    qend = torch.empty(B, dtype=torch.int32, device=dev)
-    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    bufs = _local_buffers(vcodes, vpred, nv, W, back_rows)
     so = kernels.lib()
     kernels.LAUNCHES["poa_local_warp"] += 1
     kernels.check(
         so.vg_poa_local_warp(vcodes.data_ptr(), vpred.data_ptr(), nv.data_ptr(), q.data_ptr(),
-                             B, V, P, L, backing.data_ptr(), cells.data_ptr(), best.data_ptr(),
-                             tape.data_ptr(), tlen.data_ptr(), qend.data_ptr(),
-                             n_backing.data_ptr(), kernels.stream_ptr(dev)),
+                             B, V, P, L, *(x.data_ptr() for x in bufs),
+                             kernels.stream_ptr(vcodes.device)),
         "poa_local_warp",
     )
-    return best, tape, tlen, qend, n_backing
+    return bufs[3:]
 
 
 def poa_local_warp_occupancy(P: int, W: int, V: int) -> Tuple[int, int, int]:
@@ -1083,29 +1102,16 @@ def poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows=None):
     if clusters <= 0:
         raise RuntimeError(f"poa_local_cluster: no cluster of {ctas} CTAs with {smem} B of "
                            f"shared memory each can be resident (P={P}, W={W}, V={V})")
-    dev = vcodes.device
-    off = _back_offsets(vpred, nv, back_rows)
-    back_off = torch.from_numpy(off).to(dev)
-    # never zeroed: only the host-counted rows exist, and the kernel writes
-    # every cell a walk can read
-    backing = torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev)
-    cells = torch.empty((B, V, W), dtype=torch.uint8, device=dev)
-    best = torch.empty(B, dtype=torch.float32, device=dev)
-    tape = torch.empty((B, W), dtype=torch.int32, device=dev)
-    tlen = torch.empty(B, dtype=torch.int32, device=dev)
-    qend = torch.empty(B, dtype=torch.int32, device=dev)
-    n_backing = torch.empty(B, dtype=torch.int32, device=dev)
+    bufs = _local_buffers(vcodes, vpred, nv, W, back_rows)
     so = kernels.lib()
     kernels.LAUNCHES["poa_local_cluster"] += 1
     kernels.check(
         so.vg_poa_local_cluster(vcodes.data_ptr(), vpred.data_ptr(), nv.data_ptr(), q.data_ptr(),
-                                B, V, P, L, back_off.data_ptr(), backing.data_ptr(),
-                                cells.data_ptr(), best.data_ptr(), tape.data_ptr(),
-                                tlen.data_ptr(), qend.data_ptr(), n_backing.data_ptr(),
-                                kernels.stream_ptr(dev)),
+                                B, V, P, L, *(x.data_ptr() for x in bufs),
+                                kernels.stream_ptr(vcodes.device)),
         "poa_local_cluster",
     )
-    return best, tape, tlen, qend, n_backing
+    return bufs[3:]
 
 
 @functools.lru_cache(maxsize=None)
@@ -1157,19 +1163,19 @@ _LOCAL_BUDGET = 6 << 30
 
 
 def local_problem_bytes(V: int, W: int, P: int, back_rows: np.ndarray) -> np.ndarray:
-    """Device bytes one local POA problem of a (V, W) batch takes on its
-    route (at ``route_width(W)``), per problem of ``back_rows`` (its
-    host-counted backing rows): inputs, the u8 cell plane, the backing
-    store (poa_local_warp.cu's whole int16 plane; poa_local_cluster.cu's
-    counted rows), the tape and the scalars."""
-    kernel, W = local_route(W)
-    fixed = V * (1 + 4 * P) + W + 8 + V * W + 4 * W + 16
-    per = np.full(len(back_rows), fixed, dtype=np.int64)
-    if kernel == "poa_local_warp":
-        per += 2 * V * W
-    else:
-        per += 2 * W * np.asarray(back_rows, dtype=np.int64)
-    return per
+    """Device bytes one local POA problem of a (V, W) batch takes on the
+    route ``local_route(W)`` picks (row width w), per problem of
+    ``back_rows`` (its host-counted backing rows): the inputs (codes and P
+    predecessor ids a vertex, the query, nv, nq and its backing offset),
+    the u8 cell plane V x w, the tape w i32, the scalars (best, tlen,
+    qend, n_backing), 2w bytes a backing row (int16, on both routes:
+    poa_local_warp.cu and poa_local_cluster.cu), and the query
+    right-padded to w - 1 columns where w != W."""
+    w = local_route(W)[1]
+    fixed = V * (1 + 4 * P) + (W - 1) + 12 + V * w + 4 * w + 16
+    if w != W:
+        fixed += w - 1
+    return fixed + 2 * w * np.asarray(back_rows, dtype=np.int64)
 
 
 def local_chunks(bgs, qs, v_pad: int, l_pad: int, budget: int = None):
@@ -1183,12 +1189,9 @@ def local_chunks(bgs, qs, v_pad: int, l_pad: int, budget: int = None):
     arrs = (np.stack([p.vcodes for p in probs]), _slice_preds(np.stack([p.vpred for p in probs])),
             np.asarray([p.nv for p in probs], dtype=np.int32), np.stack([p.q for p in probs]),
             np.asarray([p.nq for p in probs], dtype=np.int32))
-    W = l_pad + 1
-    back = np.zeros(len(probs), dtype=np.int64)
-    if local_route(W)[0] == "poa_local_cluster":
-        back = backing_rows_plain(torch.from_numpy(arrs[1]), torch.from_numpy(arrs[2]),
-                                  LOCAL_RING, LOCAL_PINS).numpy().astype(np.int64)
-    cost = np.cumsum(local_problem_bytes(v_pad, W, arrs[1].shape[-1], back))
+    back = backing_rows_plain(torch.from_numpy(arrs[1]), torch.from_numpy(arrs[2]),
+                              LOCAL_RING, LOCAL_PINS).numpy().astype(np.int64)
+    cost = np.cumsum(local_problem_bytes(v_pad, l_pad + 1, arrs[1].shape[-1], back))
     s = 0
     while s < len(probs):
         base = cost[s - 1] if s else 0
@@ -1207,13 +1210,13 @@ def _dispatch_local_bucket(bgs, qs, v_pad: int, l_pad: int, device: torch.device
 
 def _decode_local_bucket(bgs, qs, fetched):
     """Tapes -> PoaResults: match or mismatch per step, query positions
-    ending at qend.  Raises on a tlen of -1 (poa_local_cluster's mark of a
-    problem short of backing rows)."""
+    ending at qend.  Raises on a tlen of -1 (the local POA kernels' mark of
+    a problem short of backing rows)."""
     from .poa import _finish_result
 
     best, tape, tlens, qends = fetched
     if (tlens < 0).any():
-        raise RuntimeError("poa_local_cluster: a problem needs more backing rows than the host "
+        raise RuntimeError("the local POA route: a problem needs more backing rows than the host "
                            "counted")
     ops, vids = unpack_tape(tape)
     results = []

@@ -23,7 +23,8 @@ and 65 by default):
     each (V, L) bucket of each stream batch of 8,192 reads cut into
     chunks under the route's byte budget (``local_chunks``), which the
     one-warp local POA kernel (poa_local_warp.cu) runs at rows up to 256
-    columns and the cluster one (poa_local_cluster.cu) at 512-8,192.
+    columns and the cluster one (poa_local_cluster.cu) at 512-8,192, each
+    with its device bytes (``local_problem_bytes``).
 
 Per batch it reports the shape and the real problems' vertex counts nv
 (mean and max), whether every predecessor precedes its vertex, and how
@@ -31,8 +32,11 @@ many distinct vertices each problem reads from farther back than a row
 ring of 8 and of 16 rows, and so how many problems overflow the
 kernel's pinned rows into its backing store and how many rows they keep
 there (a ring of 8 rows and 4 pins, poa_dp_tb.cu's and
-poa_dp_tb_cluster.cu's for abPOA, poa_local_warp.cu's for rspoa).
-Everything here is counted on the host; nothing is timed.
+poa_dp_tb_cluster.cu's for abPOA, poa_local_warp.cu's and
+poa_local_cluster.cu's for rspoa).  Every one of those kernels holds
+only the rows the host counts, so a launch's device bytes include its
+backing rows, not a plane a vertex.  Everything here is counted on the
+host; nothing is timed.
 """
 
 from __future__ import annotations
@@ -109,9 +113,11 @@ def _record_batches(engine: str, index, chains, batch: int, chunks: list) -> Non
     real_dispatch, real_decode = PD._dispatch_local_bucket, PD._decode_local_bucket
 
     def record_local(bgs, qs, v_pad, l_pad, device):
-        for s, e, arrs, _back in PD.local_chunks(bgs, qs, v_pad, l_pad):
+        for s, e, arrs, back in PD.local_chunks(bgs, qs, v_pad, l_pad):
+            nbytes = PD.local_problem_bytes(v_pad, l_pad + 1, arrs[1].shape[-1], back)
             chunks.append(dict(chunk_stats(arrs[1], arrs[2], e - s, PD.LOCAL_RING,
-                                           PD.LOCAL_PINS), W=l_pad + 1, B=e - s))
+                                           PD.LOCAL_PINS), W=l_pad + 1, B=e - s,
+                               bytes=int(nbytes.sum())))
         return [(0, len(bgs), ())]
 
     def stop(*_args):

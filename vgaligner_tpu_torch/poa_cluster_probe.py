@@ -140,7 +140,11 @@ def _launcher(so, t, init):
             torch.empty(B, dtype=torch.int32, device=dev)]
     ptrs = ([x.data_ptr() for x in t] + [init.data_ptr(), B, V, P, L]
             + [o.data_ptr() for o in outs] + [kernels.stream_ptr(dev)])
-    return (lambda: kernels.check(so.vg_poa_dp_tb_cluster(*ptrs), "poa_cluster_probe")), outs
+    def call():  # holds outs: the allocator must not hand their memory on while in use
+        kernels.check(so.vg_poa_dp_tb_cluster(*ptrs), "poa_cluster_probe")
+        return outs
+
+    return call, outs
 
 
 def _ms(fn, reps):

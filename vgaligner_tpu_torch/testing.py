@@ -338,6 +338,36 @@ def far_jump_local_batch(W: int, boundary: int, V: int, seed: int = 0):
     return vcodes, vpred, nv, q, nq
 
 
+def far_rows_local_batch(V: int, W: int, seed: int = 0):
+    """Two local POA problems (vcodes, vpred, nv, q, nq; P 2) on a chain
+    of V vertices whose best match run takes a far edge in the last
+    bitmap words: the query matches the 100 vertices up to f = V - 140,
+    then u = f + 30 and the chain after it, and u's second predecessor is
+    f.  In problem 0 every 37th vertex from 40 on, and 51, 52, 83 and 84,
+    also read the vertex 20 rows back, so far vertices straddle the
+    bitmap words at 31/32 and 63/64 and f's backing row ranks behind
+    every one of them; in problem 1 f is the only far vertex, and pinned."""
+    rng = np.random.default_rng(seed)
+    L = W - 1
+    f = V - 140
+    u = f + 30
+    if f < 100 or W < 201:
+        raise ValueError("the far rows need V >= 240 and W >= 201")
+    seq = rng.integers(0, 4, V).astype(np.int8)
+    vcodes = np.stack([seq, seq])
+    vpred = np.full((2, V, 2), -1, dtype=np.int32)
+    vpred[:, 1:, 0] = np.arange(V - 1)
+    for v in sorted({*range(40, V, 37), 51, 52, 83, 84} - {u}):
+        vpred[0, v, 1] = v - 20
+    vpred[:, u, 1] = f
+    run = np.concatenate([seq[f - 99 : f + 1], seq[u : u + 100]])
+    q = rng.integers(0, 4, (2, L)).astype(np.int8)
+    q[:, : len(run)] = run
+    nv = np.full(2, V, dtype=np.int32)
+    nq = np.full(2, L, dtype=np.int32)
+    return vcodes, vpred, nv, q, nq
+
+
 def with_poa_edge_cases(arrs, empty: bool = True):
     """A global POA batch (``random_poa_batch``'s six arrays, at least 4
     problems of nv >= 8) with the rows a kernel that stops at each
