@@ -24,7 +24,12 @@ the GAFs (and prints ``-C`` and validates ``-v``), and each rank writes
 the subgraph GFAs of its own reads.  ``--shard-index`` splits the
 index's position table over the ranks; with one rank it is a no-op.
 ``VGALIGNER_TRACE=<dir>`` wraps the run in a ``torch.profiler`` trace,
-written on rank 0 as a Chrome trace under ``<dir>``.
+written on rank 0 as a Chrome trace under ``<dir>``.  The trace carries
+the program's own spans (``utils/timing.py``: ``mapper.launch``,
+``aligner.export``, ``writer.fsync`` and the rest) as user annotations
+on the profiler's clock, beside the card's kernels and copies; the
+spans of the worker thread that drains each batch are timed but not
+annotated, since the profiler follows the thread that started it.
 """
 
 from __future__ import annotations

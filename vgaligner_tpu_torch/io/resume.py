@@ -22,6 +22,8 @@ import json
 import os
 from typing import List, Optional, Sequence
 
+from ..utils.timing import TRACER
+
 PROGRESS_SUFFIX = ".progress.json"
 
 
@@ -89,13 +91,17 @@ class ResumableGafWriter:
 
     @staticmethod
     def _write_batch(fh, records) -> None:
-        if isinstance(records, (bytes, bytearray)):
-            fh.write(records)  # pre-assembled text blob (native GAF path)
-        else:
-            for rec in records:
-                fh.write(rec.to_string().encode())
-        fh.flush()
-        os.fsync(fh.fileno())  # data must be durable BEFORE the commit
+        start = fh.tell()
+        with TRACER.span("writer.write"):
+            if isinstance(records, (bytes, bytearray)):
+                fh.write(records)  # pre-assembled text blob (native GAF path)
+            else:
+                for rec in records:
+                    fh.write(rec.to_string().encode())
+        TRACER.count("writer.bytes", fh.tell() - start)
+        with TRACER.span("writer.fsync"):
+            fh.flush()
+            os.fsync(fh.fileno())  # data must be durable BEFORE the commit
 
     def write_chains(self, n_reads: int, records: Sequence) -> None:
         if self._chains_f is not None:
@@ -128,11 +134,12 @@ class ResumableGafWriter:
             "align_bytes": self._align_f.tell() if self._align_f else 0,
         }
         tmp = self.progress_path + ".tmp"
-        with open(tmp, "w") as fh:
-            json.dump(state, fh)
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, self.progress_path)
+        with TRACER.span("writer.fsync"):
+            with open(tmp, "w") as fh:
+                json.dump(state, fh)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, self.progress_path)
 
     def close(self, done: bool = True) -> None:
         if self._chains_f is not None:

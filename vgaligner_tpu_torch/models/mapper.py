@@ -48,7 +48,7 @@ from ..native import (
     map_read_chains_native,
     require_native,
 )
-from ..utils.timing import PhaseTimer
+from ..utils.timing import TRACER, ready_event
 from ..index.device_index import device_index
 from ..ops.chain import chain_scores, make_gap_cost_table
 from ..ops.encode import encode_reads_host, window_kmer_codes
@@ -225,7 +225,7 @@ class Mapper:
             self.dindex = place_index(mesh, device_index(index, torch.device("cpu")),
                                       shard_positions=self.shard_index)
         self._gap_table = make_gap_cost_table(index.kmer_length, max_gap)
-        self.timer = PhaseTimer()
+        self.timer = TRACER  # the process's spans (utils/timing.py)
 
     # ---- device step ---------------------------------------------------
 
@@ -326,7 +326,7 @@ class Mapper:
                 out[i] = [Chain(query=q, is_placeholder=True)]
         totals = np.zeros(0, dtype=np.int64)
         if mappable:
-            with self.timer.phase("count"):
+            with TRACER.span("mapper.count"):
                 totals = count_anchors_native(
                     [queries[i].seq for i in mappable], self.index.kmer_codes,
                     self.index.fo_counts, k, lut=self.index.host_lut(),
@@ -364,25 +364,27 @@ class Mapper:
         k = self.index.kmer_length
         seqs = [queries[i].seq for i in qidx] + [""] * (rows - len(qidx))
         l_pad = _next_pow2(max(l_max, k))
-        with self.timer.phase("encode"):
+        with TRACER.span("mapper.encode"):
             codes, lens = encode_reads_host(seqs, l_pad)
-        with self.timer.phase("device_map"):
+        with TRACER.span("mapper.launch"):
             packed, counts = self._map_core(
                 torch.from_numpy(codes).to(self.device),
                 torch.from_numpy(lens).to(self.device), a_max,
             )
-        return qidx, a_max, packed, counts
+            done = ready_event(self.device)
+        return qidx, a_max, packed, counts, done
 
     def _finish_oriented(self, state) -> List[List[Chain]]:
         queries, out, dispatched = state
         pending = []
-        for qidx, a_max, packed, counts in dispatched:
+        for qidx, a_max, packed, counts, done in dispatched:
             if not qidx:
                 continue  # a launch of empty reads only: this rank's share of the agreement
-            with self.timer.phase("gather"):
+            TRACER.wait("mapper.device_wait", done)
+            with TRACER.span("mapper.gather"):
                 plane = packed[: len(qidx)].cpu().numpy()
                 cnt = counts[: len(qidx)].cpu().numpy()
-            with self.timer.phase("backtrack"):
+            with TRACER.span("mapper.backtrack"):
                 read_off, chain_off, positions = backtrack_delta_native(
                     plane, cnt[:, 0], self.chain_min_n_anchors
                 )
@@ -408,7 +410,7 @@ class Mapper:
         """Chain-member coordinates re-derived natively from the index,
         then Chain objects (placeholder rows for reads without chains)."""
         k = self.index.kmer_length
-        with self.timer.phase("coords"):
+        with TRACER.span("mapper.coords"):
             read_ids, read_amax, mem_counts, slot_parts = [], [], [], []
             for qidx, a_max, per_read in pending:
                 for b, read_chains in enumerate(per_read):
@@ -428,7 +430,7 @@ class Mapper:
                     np.asarray(read_amax, dtype=np.int64), mem_off,
                     np.concatenate(slot_parts),
                 )
-        with self.timer.phase("emit"):
+        with TRACER.span("mapper.emit"):
             flat = 0
             for qidx, _a_max, per_read in pending:
                 for b, qi in enumerate(qidx):
@@ -454,7 +456,7 @@ class Mapper:
 
     def chains_gaf_text(self, per_read_chains: List[List[Chain]]) -> bytes:
         """The chains-GAF rows as one blob, assembled natively."""
-        with self.timer.phase("gaf"):
+        with TRACER.span("mapper.gaf"):
             blob = chains_gaf_blob_native(per_read_chains, self.index)
         if blob is None:
             raise RuntimeError("native chains-GAF assembly failed")

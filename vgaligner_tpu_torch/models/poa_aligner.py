@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import heapq
 import logging
+import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import List, Optional, Tuple, Union
@@ -47,6 +48,7 @@ from ..native import (
     require_native,
 )
 from ..utils.dna import encode_seq
+from ..utils.timing import TRACER, ready_event
 from ..ops.poa_device import P_MAX, _l_pad_for, _next_pow2, align_local_batch, \
     dispatch_bucket, kernel_finish_all
 from ..parallel.mesh import Mesh, rank_device
@@ -693,13 +695,14 @@ class PoaAligner:
             return state[1]
         _tag, per_read_chains, selected, placeholders, pending = state
         per_read: dict = {qi: [a] for qi, a in placeholders.items()}
-        if pending is not None:
-            for (qi, chain), (res, handles) in zip(selected, self._finish_chains(pending)):
+        finished = self._finish_chains(pending) if pending is not None else []
+        with TRACER.span("aligner.select"):
+            for (qi, chain), (res, handles) in zip(selected, finished):
                 a = GAFAlignment.from_abpoa_result(res, chain, handles)
                 a.poa_score = res.best_score
                 a.poa_cs = res.cs
                 per_read.setdefault(qi, []).append(a)
-        return self._select_best(per_read_chains, per_read)
+            return self._select_best(per_read_chains, per_read)
 
     def _best_alignments_rspoa(self, per_read_chains: List[List[Chain]],
                                align_best_n: int) -> List[GAFAlignment]:
@@ -714,17 +717,22 @@ class PoaAligner:
                     per_read.setdefault(qi, []).append(GAFAlignment.from_placeholder_chain(chain))
                     continue
                 selected.append((qi, chain))
+        results = []
         if selected:
-            sub = self._extract([c for _, c in selected])
-            problems = [(sub.nodes(i), sub.edges(i), chain.query.seq)
-                        for i, (_qi, chain) in enumerate(selected)]
-            for i, ((qi, chain), res) in enumerate(
-                    zip(selected, align_local_batch(problems, self.device))):
+            with TRACER.span("aligner.extract"):
+                sub = self._extract([c for _, c in selected])
+            with TRACER.span("aligner.build"):
+                problems = [(sub.nodes(i), sub.edges(i), chain.query.seq)
+                            for i, (_qi, chain) in enumerate(selected)]
+            with TRACER.span("aligner.launch"):
+                results = align_local_batch(problems, self.device)
+        with TRACER.span("aligner.select"):
+            for i, ((qi, chain), res) in enumerate(zip(selected, results)):
                 sub.rebase(i, res)
                 a = GAFAlignment.from_rspoa_result(res, chain, sub.handles(i))
                 a.poa_score = res.best_score
                 per_read.setdefault(qi, []).append(a)
-        return self._select_best(per_read_chains, per_read)
+            return self._select_best(per_read_chains, per_read)
 
     def _extract(self, chains: List[Chain]) -> "_Subgraphs":
         """Every chain's subgraph under this aligner's range mode, natively."""
@@ -752,60 +760,92 @@ class PoaAligner:
         launched per (V, L) bucket as real problems under the route's byte
         budget (``global_chunks``); host outliers complete here."""
         n = len(chains)
-        sub = self._extract(chains)
+        with TRACER.span("aligner.extract"):
+            sub = self._extract(chains)
         if self.export_subgraphs and self.graph is not None:
-            # every chain's subgraph, as the reference does (map.rs:164)
-            from ..io.validate import create_subgraph_gfa, export_gfa
+            self._export(chains, sub)
 
-            for i, chain in enumerate(chains):
-                export_gfa(
-                    create_subgraph_gfa(sub.nodes(i), sub.edges(i),
-                                        get_subgraph_paths(self.graph, sub.handles(i))),
-                    f"{chain.query.name}-subgraph-{chain.n_anchors}.gfa",
-                )
-
-        qs = [encode_seq(c.query.seq) for c in chains]
-        v_per = sub.label_off[sub.handle_off[1:]] - sub.label_off[sub.handle_off[:-1]]
-        buckets: dict = {}
+        with TRACER.span("aligner.build"):
+            qs = [encode_seq(c.query.seq) for c in chains]
+            v_per = sub.label_off[sub.handle_off[1:]] - sub.label_off[sub.handle_off[:-1]]
+            buckets: dict = {}
+            on_host = []
+            for i in range(n):
+                if int(v_per[i]) > _V_DEVICE_CAP:
+                    on_host.append(i)
+                    continue
+                key = (_next_pow2(max(int(v_per[i]), 256)), _l_pad_for(len(qs[i])))
+                buckets.setdefault(key, []).append(i)
+            edges_flat = np.ascontiguousarray(sub.edges_arr.reshape(-1), dtype=np.int64)
         out = [None] * n
-        for i in range(n):
-            if int(v_per[i]) > _V_DEVICE_CAP:
-                out[i] = poa_global_host_native(sub.nodes(i), sub.edges(i),
-                                                chains[i].query.seq)
-                continue
-            key = (_next_pow2(max(int(v_per[i]), 256)), _l_pad_for(len(qs[i])))
-            buckets.setdefault(key, []).append(i)
-        edges_flat = np.ascontiguousarray(sub.edges_arr.reshape(-1), dtype=np.int64)
+        if on_host:
+            with TRACER.span("aligner.host_poa"):
+                for i in on_host:
+                    out[i] = poa_global_host_native(sub.nodes(i), sub.edges(i),
+                                                    chains[i].query.seq)
+        n_host = len(on_host)
         pending = []
         for (v_pad, l_pad), idxs in sorted(buckets.items()):
-            # ascending V: a launch's problems of like size share blocks
-            idxs.sort(key=lambda i: int(v_per[i]))
-            built = build_poa_batch_arrays(
-                sub.labels, sub.label_off, sub.handle_off.astype(np.int64),
-                sub.edge_off.astype(np.int64), edges_flat, np.asarray(idxs, dtype=np.int64),
-                v_pad, P_MAX,
-            )
+            with TRACER.span("aligner.build"):
+                # ascending V: a launch's problems of like size share blocks
+                idxs.sort(key=lambda i: int(v_per[i]))
+                built = build_poa_batch_arrays(
+                    sub.labels, sub.label_off, sub.handle_off.astype(np.int64),
+                    sub.edge_off.astype(np.int64), edges_flat, np.asarray(idxs, dtype=np.int64),
+                    v_pad, P_MAX,
+                )
             if built is None:
                 # fan-in above P_MAX: the host oracle (rare)
                 from ..ops.poa import align_global_host
 
-                for i in idxs:
-                    out[i] = align_global_host(sub.nodes(i), sub.edges(i), chains[i].query.seq)
+                with TRACER.span("aligner.host_poa"):
+                    for i in idxs:
+                        out[i] = align_global_host(sub.nodes(i), sub.edges(i),
+                                                   chains[i].query.seq)
+                n_host += len(idxs)
                 continue
-            pending.append((idxs, dispatch_bucket(built, [qs[i] for i in idxs], v_pad,
-                                                  l_pad, self.device)))
+            with TRACER.span("aligner.launch"):
+                ps = dispatch_bucket(built, [qs[i] for i in idxs], v_pad, l_pad, self.device)
+                pending.append((idxs, ps, ready_event(self.device)))
+        TRACER.count("aligner.host_problems", n_host)
+        TRACER.count("aligner.device_problems", n - n_host)
         return (n, out, pending, sub)
 
+    def _export(self, chains: List[Chain], sub: "_Subgraphs") -> None:
+        """Every chain's subgraph GFA, as the reference does (map.rs:164):
+        one span for the loop, its two halves summed over the chains (the
+        paths in the range, then the GFA text and its file)."""
+        from ..io.validate import create_subgraph_gfa, export_gfa
+
+        paths_s = write_s = 0.0
+        with TRACER.span("aligner.export"):
+            t0 = time.perf_counter()
+            for i, chain in enumerate(chains):
+                paths = get_subgraph_paths(self.graph, sub.handles(i))
+                t1 = time.perf_counter()
+                export_gfa(create_subgraph_gfa(sub.nodes(i), sub.edges(i), paths),
+                           f"{chain.query.name}-subgraph-{chain.n_anchors}.gfa")
+                t2 = time.perf_counter()
+                paths_s += t1 - t0
+                write_s += t2 - t1
+                t0 = t2
+        TRACER.add("aligner.export.paths", paths_s)
+        TRACER.add("aligner.export.write", write_s)
+        TRACER.count("aligner.export_files", len(chains))
+
     def _finish_chains(self, state):
-        """Drain the device chunks and pair each result with its range
-        handles, offsets rebased to untrimmed node coordinates."""
+        """Drain the device chunks, each bucket once its launches are done,
+        and pair each result with its range handles, offsets rebased to
+        untrimmed node coordinates."""
         n, out, pending, sub = state
-        for idxs, ps in pending:
+        for idxs, ps, done in pending:
+            TRACER.wait("aligner.device_wait", done)
             for i, res in zip(idxs, kernel_finish_all(ps)):
                 out[i] = res
-        for i in range(n):
-            sub.rebase(i, out[i])
-        return [(out[i], sub.handles(i)) for i in range(n)]
+        with TRACER.span("aligner.select"):
+            for i in range(n):
+                sub.rebase(i, out[i])
+            return [(out[i], sub.handles(i)) for i in range(n)]
 
 
 class _Subgraphs:

@@ -19,6 +19,12 @@ order (``Mesh.gather_bytes``) and reach the callbacks there as a
 ``GafBatch``; other ranks' callbacks are never called.  The collectives
 (the mapper's and the merges) all run on the calling thread; the worker
 thread only drains.
+
+Each call leaves the program's spans and counters over it
+(``utils/timing.py``) in ``LAST_RUN``, so a caller that drives the stream
+through its callbacks can read where the time went: ``stream.join`` is
+the calling thread waiting on the worker, ``stream.merge`` rank 0's
+merge on several ranks.
 """
 
 from __future__ import annotations
@@ -29,10 +35,14 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 from ..io.fastx import QuerySequence
 from ..io.gaf import GAFAlignment
 from ..parallel.mesh import Mesh, shard_batch
+from ..utils.timing import TRACER
 from .mapper import Mapper
 from .poa_aligner import PoaAligner
 
 DEFAULT_BATCH = 8192
+
+# the spans and counters of the last stream_map_align call (Tracer.since)
+LAST_RUN: Optional[dict] = None
 
 
 class GafBatch(NamedTuple):
@@ -54,7 +64,9 @@ def _merged(mesh: Mesh, to_blob, callback):
     gathered on rank 0, and handed to ``callback`` there."""
 
     def emit(per_read):
-        got = mesh.gather_bytes(to_blob(per_read), len(per_read))
+        blob = to_blob(per_read)
+        with TRACER.span("stream.merge"):
+            got = mesh.gather_bytes(blob, len(per_read))
         if got is not None and callback is not None:
             callback(GafBatch(*got))
 
@@ -87,7 +99,8 @@ class _Worker:
         """(had_work, result); re-raises the worker's error."""
         if self.thread is None:
             return False, None
-        self.thread.join()
+        with TRACER.span("stream.join"):
+            self.thread.join()
         self.thread = None
         result, err = self.result, self.error
         self.result = self.error = None
@@ -110,6 +123,17 @@ def stream_map_align(
     Without a mesh the callbacks get each batch's chains (a list per
     read) and alignments (one a read); with one, rank 0's get
     ``GafBatch``es.  Every rank passes the same queries."""
+    global LAST_RUN
+    before = TRACER.snapshot()
+    try:
+        _stream(mapper, queries, aligner, batch_size, align_best_n, on_chains,
+                on_alignments, mesh)
+    finally:
+        LAST_RUN = TRACER.since(before)
+
+
+def _stream(mapper, queries, aligner, batch_size, align_best_n, on_chains, on_alignments,
+            mesh) -> None:
     n = len(queries)
     if n == 0:
         return

@@ -55,6 +55,7 @@ import torch
 
 from .. import kernels
 from ..native import finish_tapes_native, require_native
+from ..utils.timing import TRACER
 from .poa import GAP_EXT1, GAP_EXT2, GAP_OPEN1, GAP_OPEN2, MATCH, MISMATCH, BaseGraph
 
 NEGF = np.float32(-1.0e9)
@@ -694,16 +695,17 @@ def kernel_finish_all(pendings) -> List:
     sliced to its longest walk) and decode them into PoaResults, in
     order.  Raises on a tlen of -1 (a problem short of backing rows)."""
     out: List = []
-    for p in pendings:
-        score, tape, tlen = p[0]
-        tlen_h = tlen.cpu().numpy()
-        if (tlen_h < 0).any():
-            raise RuntimeError("global POA: a problem needs more backing rows than the host "
-                               "counted")
-        used = max(1, int(tlen_h.max()))
-        out.extend(_decode_finished(
-            p, (score.cpu().numpy(), tape[:, :used].cpu().numpy(), tlen_h)
-        ))
+    with TRACER.span("aligner.drain"):
+        for p in pendings:
+            score, tape, tlen = p[0]
+            tlen_h = tlen.cpu().numpy()
+            if (tlen_h < 0).any():
+                raise RuntimeError("global POA: a problem needs more backing rows than the "
+                                   "host counted")
+            used = max(1, int(tlen_h.max()))
+            out.extend(_decode_finished(
+                p, (score.cpu().numpy(), tape[:, :used].cpu().numpy(), tlen_h)
+            ))
     return out
 
 
