@@ -7,8 +7,9 @@ program opens them.
     profiler's window in its Chrome trace as user annotations;
   * the mapper's, the abPOA and rspoa routes', the writer's and the
     stream's spans and counters on a small CPU run, the host POA counted
-    and its results unchanged, and the abPOA route's spans covering
-    ``begin_alignments``.
+    and its results unchanged, the export's paths counted as the native
+    pass's and timed inside the export, and the abPOA route's spans
+    covering ``begin_alignments``.
 """
 
 import json
@@ -208,6 +209,35 @@ def test_abpoa_route_spans_and_counters(world, tmp_path, monkeypatch):
     assert got["counters"]["aligner.host_problems"] == 0  # registered, none ran there
     halves = got["spans"]["aligner.export.paths"] + got["spans"]["aligner.export.write"]
     assert halves <= got["spans"]["aligner.export"]
+
+
+def test_export_paths_come_from_the_native_pass(world, tmp_path, monkeypatch):
+    """Every exported chain's paths come from the batch's native pass
+    (``aligner.export.native_paths`` equals ``aligner.export_files``), and
+    ``aligner.export.paths`` is still a span inside ``aligner.export``, on
+    the tracer and on the profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.chdir(tmp_path)
+    aligner = PA.PoaAligner(world["index"], CPU, export_subgraphs=True, graph=world["graph"])
+    before = TRACER.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state = aligner.begin_alignments(world["chains"])
+    aligner.finish_alignments(state)
+    got = TRACER.since(before)
+    n = sum(not cs[0].is_placeholder for cs in world["chains"])
+    assert got["counters"]["aligner.export.native_paths"] == n
+    assert got["counters"]["aligner.export_files"] == n == len(os.listdir("subgraphs"))
+    assert 0 < got["spans"]["aligner.export.paths"] <= got["spans"]["aligner.export"]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = {e["name"]: e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"}
+    outer, inner = events["aligner.export"], events["aligner.export.paths"]
+    end = lambda e: float(e["ts"]) + float(e["dur"])  # noqa: E731
+    assert inner["tid"] == outer["tid"]
+    assert float(outer["ts"]) <= float(inner["ts"]) and end(inner) <= end(outer) + 1e-3
 
 
 def test_host_problems_are_counted_and_unchanged(world, tmp_path, monkeypatch):

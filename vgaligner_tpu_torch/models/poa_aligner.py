@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import heapq
 import logging
-import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import List, Optional, Tuple, Union
@@ -44,8 +43,10 @@ from ..io.gaf import GAFAlignment
 from ..native import (
     build_poa_batch_arrays,
     extract_subgraphs_native,
+    path_index,
     poa_global_host_native,
     require_native,
+    subgraph_paths_native,
 )
 from ..utils.dna import encode_seq
 from ..utils.timing import TRACER, ready_event
@@ -465,7 +466,9 @@ def find_nodes_edges(index: Index, po_range: OrientedGraphRange) -> Tuple[List[s
 
 def get_subgraph_paths(graph, po_range: Union["OrientedGraphRange", List[int]]):
     """Paths restricted to the range (an ``OrientedGraphRange`` or its
-    handle list), ids rebased to it (align.rs:1170-1189)."""
+    handle list), ids rebased to it (align.rs:1170-1189).  The per-chain
+    route's; the batch route's export takes the same from
+    ``native.subgraph_paths_native``."""
     handles = po_range.handles if isinstance(po_range, OrientedGraphRange) else po_range
     in_range = set(handles)
     min_in_range = min(handle_id(h) for h in handles)
@@ -531,6 +534,7 @@ class PoaAligner:
         self.engine = engine
         self.export_subgraphs = export_subgraphs
         self.graph = graph
+        self._path_index = None  # the graph's P-lines by handle, built at the first export
         self.bubble_closure = bubble_closure
         explicit_mode = range_mode is not None
         if range_mode is None:
@@ -812,25 +816,22 @@ class PoaAligner:
         return (n, out, pending, sub)
 
     def _export(self, chains: List[Chain], sub: "_Subgraphs") -> None:
-        """Every chain's subgraph GFA, as the reference does (map.rs:164):
-        one span for the loop, its two halves summed over the chains (the
-        paths in the range, then the GFA text and its file)."""
+        """Every chain's subgraph GFA, as the reference does (map.rs:164),
+        in two spans inside one: the paths in every chain's range, in one
+        native pass over the batch (``get_subgraph_paths``'s result), then
+        each chain's GFA text and its file, in chain order."""
         from ..io.validate import create_subgraph_gfa, export_gfa
 
-        paths_s = write_s = 0.0
         with TRACER.span("aligner.export"):
-            t0 = time.perf_counter()
-            for i, chain in enumerate(chains):
-                paths = get_subgraph_paths(self.graph, sub.handles(i))
-                t1 = time.perf_counter()
-                export_gfa(create_subgraph_gfa(sub.nodes(i), sub.edges(i), paths),
-                           f"{chain.query.name}-subgraph-{chain.n_anchors}.gfa")
-                t2 = time.perf_counter()
-                paths_s += t1 - t0
-                write_s += t2 - t1
-                t0 = t2
-        TRACER.add("aligner.export.paths", paths_s)
-        TRACER.add("aligner.export.write", write_s)
+            with TRACER.span("aligner.export.paths"):
+                if self._path_index is None:
+                    self._path_index = path_index(self.graph)
+                paths = subgraph_paths_native(self._path_index, sub.handle_off, sub.handles_arr)
+            with TRACER.span("aligner.export.write"):
+                for i, chain in enumerate(chains):
+                    export_gfa(create_subgraph_gfa(sub.nodes(i), sub.edges(i), paths[i]),
+                               f"{chain.query.name}-subgraph-{chain.n_anchors}.gfa")
+        TRACER.count("aligner.export.native_paths", len(paths))
         TRACER.count("aligner.export_files", len(chains))
 
     def _finish_chains(self, state):

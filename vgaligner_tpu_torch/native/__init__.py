@@ -20,7 +20,7 @@ import logging
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -140,6 +140,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(_u8p),
         ]
         lib.vg_extract_subgraphs.restype = ctypes.c_int64
+        lib.vg_subgraph_paths.argtypes = [
+            ctypes.c_int64, _i64p, _i64p,
+            ctypes.c_int64, ctypes.c_int64, _i64p, _i64p, _i64p, _i32p,
+            _i64p, ctypes.POINTER(_i64p),
+        ]
+        lib.vg_subgraph_paths.restype = ctypes.c_int64
         lib.vg_finish_tapes.argtypes = [
             ctypes.c_int64, ctypes.c_int64, _i8p, _i32p, _i32p,
             _i64p, _i8p, _i32p, _i32p,
@@ -797,6 +803,71 @@ def extract_subgraphs_native(index, anchor_off: np.ndarray, aqb: np.ndarray,
         lib.vg_free(ost)
     return (handle_off, handles, label_off, lbase, labels, edge_off,
             edges_out, status)
+
+
+class PathIndex(NamedTuple):
+    """A graph's P-lines by handle value, for ``subgraph_paths_native``:
+    the path ids in order, and for each distinct step handle (``keys``,
+    sorted) its steps ``[key_off[k], key_off[k+1])``, each as its index
+    among all paths' steps in (path, position) order and its path's rank."""
+
+    pids: List[int]
+    keys: np.ndarray
+    key_off: np.ndarray
+    occ_step: np.ndarray
+    occ_path: np.ndarray
+
+
+def path_index(graph) -> PathIndex:
+    """The ``PathIndex`` of ``graph``'s P-lines, in path-id order."""
+    pids = sorted(graph.paths_iter())
+    steps = [np.asarray(graph.get_path(pid).nodes, dtype=np.int64) for pid in pids]
+    lens = np.asarray([len(s) for s in steps], dtype=np.int64)
+    flat = np.concatenate(steps) if steps else np.zeros(0, np.int64)
+    # a stable sort keeps each handle's steps in (path, position) order
+    order = np.argsort(flat, kind="stable")
+    keys, first = np.unique(flat[order], return_index=True)
+    return PathIndex(
+        pids=pids,
+        keys=np.ascontiguousarray(keys, dtype=np.int64),
+        key_off=np.append(first, len(flat)).astype(np.int64),
+        occ_step=np.ascontiguousarray(order, dtype=np.int64),
+        occ_path=np.repeat(np.arange(len(pids), dtype=np.int32), lens)[order],
+    )
+
+
+def subgraph_paths_native(index: PathIndex, handle_off: np.ndarray,
+                          handles: np.ndarray) -> List[Dict[int, List[int]]]:
+    """``get_subgraph_paths`` of every range of a batch (range p owns
+    ``handles[handle_off[p]:handle_off[p+1]]``, the extractor's layout)
+    in one native pass: per range, ``{path id: ids rebased to the range}``
+    with every path id present.  An empty range raises ValueError, as
+    the Python's ``min()`` does."""
+    lib = get_lib()
+    assert lib is not None
+    B, n_paths = len(handle_off) - 1, len(index.pids)
+    ho = np.ascontiguousarray(handle_off, dtype=np.int64)
+    hs = np.ascontiguousarray(handles, dtype=np.int64)
+    if B < 0 or ho[0] != 0 or ho[-1] != len(hs) or (np.diff(ho) < 0).any():
+        raise ValueError("handle_off does not partition the handles")
+    off = np.empty(B * n_paths + 1, dtype=np.int64)
+    out = _i64p()
+    bad = lib.vg_subgraph_paths(
+        B, _p64(ho), _p64(hs), n_paths, len(index.keys), _p64(index.keys),
+        _p64(index.key_off), _p64(index.occ_step), _p32(index.occ_path),
+        _p64(off), ctypes.byref(out),
+    )
+    if bad:
+        raise ValueError(f"range {bad - 1} of the batch has no handle")
+    try:
+        n = int(off[-1])
+        ids = np.ctypeslib.as_array(out, shape=(max(n, 1),))[:n].tolist()
+    finally:
+        lib.vg_free(out)
+    off = off.tolist()
+    # every (range, path) slice in one C-level map, then a dict a range
+    lists = list(map(ids.__getitem__, map(slice, off[:-1], off[1:])))
+    return [dict(zip(index.pids, lists[p * n_paths:(p + 1) * n_paths])) for p in range(B)]
 
 
 def finish_tapes_native(ops: np.ndarray, vids: np.ndarray, tlens: np.ndarray,

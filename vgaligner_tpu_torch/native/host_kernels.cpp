@@ -1521,6 +1521,78 @@ int64_t vg_extract_subgraphs(
 }
 
 // ---------------------------------------------------------------------------
+// Subgraph paths of a batch of ranges (align.rs:1170-1189; mirrors
+// models/poa_aligner.py get_subgraph_paths)
+// ---------------------------------------------------------------------------
+
+// The graph's P-lines restricted to each of B ranges (handle_off[B+1],
+// handles: vg_extract_subgraphs' output), ids rebased to the range's
+// smallest node id: handle_id(h) - min + 1, in path order, a step kept
+// when its whole handle value (orientation included) is in the range.
+// The path index is a CSR over handle values: keys[n_keys] sorted, the
+// occurrences of keys[k] in [key_off[k], key_off[k+1]), each the step's
+// index among all paths' steps in (path, position) order (occ_step) and
+// its path's rank (occ_path).
+// Outputs: out_off [B * n_paths + 1] (caller-allocated), range p's ids
+// on path rank j in [out_off[p*n_paths+j], out_off[p*n_paths+j+1]);
+// out_ids malloc'd.  Returns 0, or p+1 for the first empty range (the
+// Python's min() raises there), with nothing allocated.
+int64_t vg_subgraph_paths(
+    int64_t B, const int64_t* handle_off, const int64_t* handles,
+    int64_t n_paths, int64_t n_keys, const int64_t* keys,
+    const int64_t* key_off, const int64_t* occ_step,
+    const int32_t* occ_path, int64_t* out_off, int64_t** out_ids) {
+  *out_ids = nullptr;
+  for (int64_t p = 0; p < B; ++p)
+    if (handle_off[p + 1] == handle_off[p]) return p + 1;
+
+  // the range's distinct handles, each with its key's slot (-1: on no path)
+  auto distinct = [&](int64_t p, std::vector<int64_t>& hs,
+                      std::vector<int64_t>& slot) {
+    hs.assign(handles + handle_off[p], handles + handle_off[p + 1]);
+    std::sort(hs.begin(), hs.end());
+    hs.erase(std::unique(hs.begin(), hs.end()), hs.end());
+    slot.resize(hs.size());
+    for (size_t i = 0; i < hs.size(); ++i) {
+      const int64_t* k = std::lower_bound(keys, keys + n_keys, hs[i]);
+      slot[i] = (k != keys + n_keys && *k == hs[i]) ? k - keys : -1;
+    }
+  };
+
+  // count: each range's steps by path, into out_off[1 + p*n_paths + j]
+  std::fill(out_off, out_off + B * n_paths + 1, 0);
+  parallel_for(B, [&](int64_t p) {
+    thread_local std::vector<int64_t> hs, slot;
+    distinct(p, hs, slot);
+    int64_t* c = out_off + 1 + p * n_paths;
+    for (int64_t s : slot)
+      if (s >= 0)
+        for (int64_t o = key_off[s]; o < key_off[s + 1]; ++o) ++c[occ_path[o]];
+  });
+  for (int64_t i = 1; i <= B * n_paths; ++i) out_off[i] += out_off[i - 1];
+
+  // fill: a range's steps in (path, position) order, each path's run
+  // landing at its offset since the count above ordered them the same way
+  int64_t* ids = (int64_t*)std::malloc(sizeof(int64_t) * std::max<int64_t>(out_off[B * n_paths], 1));
+  parallel_for(B, [&](int64_t p) {
+    thread_local std::vector<int64_t> hs, slot;
+    thread_local std::vector<std::pair<int64_t, int64_t>> steps;
+    distinct(p, hs, slot);
+    int64_t min_id = hs[0] >> 1;  // hs is sorted, and h >> 1 keeps the order
+    steps.clear();
+    for (size_t i = 0; i < hs.size(); ++i)
+      if (slot[i] >= 0)
+        for (int64_t o = key_off[slot[i]]; o < key_off[slot[i] + 1]; ++o)
+          steps.emplace_back(occ_step[o], (hs[i] >> 1) - min_id + 1);
+    std::sort(steps.begin(), steps.end());
+    int64_t* dst = ids + out_off[p * n_paths];
+    for (size_t i = 0; i < steps.size(); ++i) dst[i] = steps[i].second;
+  });
+  *out_ids = ids;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
 // Device op tapes -> CIGAR / cs strings + node paths
 // (align.rs:1096-1167; mirrors ops/poa.py _finish_result and the tape
 // decoding of ops/poa_device.py _align_bucket)
