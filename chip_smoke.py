@@ -15,32 +15,23 @@ Phases, one line each; any failure raises and the exit code is not 0:
        K1 chaining DP (fast) at the main path's shape (4,096 reads x 256
        anchors of real reads) and at A = 16,384 and 65,536; the gap cost
        for g = 0..1000;
-       K2 POA DP and K3 traceback, the first ports that no route launches
-       now, on random DAG batches (P in 2/4/8, W in 128/256, V 256), at W
-       2,048/4,096/8,192 (V 256), at V 8,192 x W 16,384 (B 2, nv near
-       8,192, far predecessors: the largest problem the device route
-       has), where K8 is held to the same plain pair's outputs and timed
-       in turns with K2 + K3 (with both bounds), and at the main path's
-       chunk shape (1,024 x 256 x 128);
        K6, the POA DP and traceback in one kernel for rows up to 256
        columns, on batches with far predecessors and more far-referenced
        vertices than it pins (its backing store), P 2/4/8 x W 32/128/256,
-       and at the main path's chunk shape, then timed against K2 + K3 on
-       the same CUDA tensors in turns (K2 + K3, K6, K6, K2 + K3); the
+       and at the main path's chunk shape (1,024 x 256 x 128), where it is
+       timed beside the plain pair on the same CUDA tensors; the
        lane-padded contract of the JAX package's VMEM-resident Pallas DP
-       (poa_global_kernel, 1,024 x 256, L 100), which K6 now runs;
+       (poa_global_kernel, 1,024 x 256, L 100), which K6 runs;
        K8, the POA DP and traceback in one kernel for rows of 512-16,384
        columns, one thread-block cluster a problem (512 columns a CTA, 1,024
        at W 16,384), at every width of CLUSTER_WIDTHS x P 2/4/8 (V 256, 128
-       from W 8,192; at W 16,384 timed in turns with K2 + K3) and at V
-       8,192 x W 2,048 and W 8,192 x V 1,024, on batches with far
-       predecessors, pin overflow, a predecessor at and past its vertex
-       and nv = 4; its cluster size, clusters resident, shared memory a
-       CTA, and ptxas registers and spills of each instance;
-       K4 local POA, one block a problem (the first port, which no route
-       launches now), on random batches (P 2/4/8, W 128/256/2048, V
-       256/2048, problems with no positive cell and nv < V), and at W
-       16,384 (B 8 x V 128, and V 8,192) held and timed in turns with K9;
+       from W 8,192; timed at W 16,384) and at V 8,192 x W 2,048 and W
+       8,192 x V 1,024, on batches with far predecessors, pin overflow, a
+       predecessor at and past its vertex and nv = 4; at V 8,192 x W
+       16,384 (B 2, nv near 8,192, far predecessors: the largest problem
+       the device route has), held to the plain pair and timed beside it;
+       its cluster size, clusters resident, shared memory a CTA, and ptxas
+       registers and spills of each instance;
        K7 local POA, one warp a problem, for rows up to 256 columns, with
        the host's backing-row counts, on P 2/4/8 x W 32/64/128/256 x V
        64/256/2,048 batches with far predecessors past its ring, problems
@@ -56,7 +47,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
        pin overflow, a predecessor at and past its vertex and nv = 4 and
        0, and on chains whose best run takes a far edge (pinned, and on
        the backing store) where a CTA's columns start (W 4,096, 8,192 and
-       16,384); its occupancy and ptxas report;
+       16,384); at W 16,384 (B 8 x V 128, and V 8,192) through
+       ``poa_local``, held to the twin and timed beside it; its occupancy
+       and ptxas report;
        K5 exact chaining DP on the real anchors at 4,096 x 256 and at
        A = 16,384 and 65,536, then both of its paths (one divide a row;
        one a pair, which a gap table with a negative entry or with scores
@@ -71,11 +64,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
      with ``-t 0`` (one rank on the one card, no process spawned):
      K1 and K6 launched (K6 twice: one launch of real problems under the
      route's byte budget for each stream batch of 8,192 and 4,096 reads),
-     K2 and K3 not; the launches' mean nv and how many problems took K6's
-     backing store; K6 held against K2 + K3 and timed on the largest of
-     those launches, and that launch timed in turns against the ladder
-     plan it replaced (chunks of 1,024 problems), both on K6 with the
-     host's backing-row counts; the first 256 reads again with
+     K8 not; the launches' mean nv and how many problems took K6's
+     backing store; K6 held against the plain pair and timed on the
+     largest of those launches, and that launch timed in turns against
+     the ladder plan it replaced (chunks of 1,024 problems), both on K6
+     with the host's backing-row counts; the first 256 reads again with
      ``--device cpu --precision fast`` (the plain twins), and both GAFs
      byte-identical for those reads;
   5. the sharded path: the same reads through ``stream_map_align`` with
@@ -88,31 +81,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
      launch, two all-gathers a merge); no CPU fallback: without NCCL the
      smoke fails;
   6. the rspoa path: ``map -p rspoa -D -G --precision exact`` over the
-     same reads: K7 and K5 launched, K4, K1 and K2 not, no subgraph GFA
+     same reads: K7 and K5 launched, K1, K6 and K9 not, no subgraph GFA
      written, 95 % of reads aligned, and the first 256 reads
      byte-identical to ``--device cpu --precision exact``; on the
      largest batch that run gave the local POA, K7 (with the host's
      backing-row counts, as the route called it) is held against its
-     twin and K4 and K7 are timed in turns (K4, K7, K7, K4), through
-     their wrappers and as the kernel alone on buffers allocated once;
+     twin and timed, through its wrapper and as the kernel alone on
+     buffers allocated once, beside the twin;
      that launch's backing rows, its device bytes by
      ``local_problem_bytes`` and K7's peak device memory on it, held
      under the route's byte budget;
   7. long reads: ``map -p abpoa -D -G --precision fast`` over 64 reads
      of 1,500-2,100 bp and one 10 kb read (POA rows of W 2,048/4,096 on
-     K8, not K2, K3 or K6, and a subgraph over 8,192 vertices on the
+     K8, not K6, and a subgraph over 8,192 vertices on the
      native host POA), both GAFs byte-identical to ``--device cpu``; K1
      held and timed on the launch that run gave it; K8 launched 3 times,
      once a (V, W) bucket, on real problems only, and held against the
-     plain pair on every launch, and K8, K2 and K3 held against their
-     twins on the largest and timed there in turns (K2 + K3, K8, K8, K2 +
-     K3), and that launch timed in turns against the ladder plan it
+     plain pair on every launch, timed beside the plain pair on the
+     largest, and that launch timed in turns against the ladder plan it
      replaced (chunks of 32 problems); then ``map -p rspoa -D -G --precision exact``
      over the same reads (local POA rows of 2,048 and 4,096 columns: K9
-     and K5 launched, K4, K7 and K1 not), both GAFs byte-identical to
+     and K5 launched, K7 and K1 not), both GAFs byte-identical to
      ``--device cpu``, each local POA launch's shape and bytes under the
      route's budget, K9 held against its twin on each, K5 held and timed
-     on its launch, and K4 and K9 timed in turns on the largest local POA
+     on its launch, and K9 timed beside the twin on the largest local POA
      batch.
   8. the Python subgraph route: the 12,288 reads mapped on the card by
      ``Mapper(index, precision="fast")`` with no device (the card by
@@ -120,7 +112,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
      (``PoaAligner._range_for_chain``, ``find_nodes_edges``) and held to
      the native extractor's in corridor mode (and in id mode with bubble
      closure on a seeded 1,024-read sample), then ``align_global_batch``
-     on the card: K6 once a (V, L) bucket, K2, K3 and K8 not; every
+     on the card: K6 once a (V, L) bucket, K8 not; every
      PoaResult and GAF row equal to the native CLI route's, and a seeded
      256-problem sample equal on the CPU; then the same on the long
      reads (K8 launched, the 10 kb read's subgraph on the native host
@@ -129,7 +121,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
   9. rows of 16,384 columns: ``align_global_batch`` and
      ``align_local_batch`` on the card over five problems of 8.3-14 kb
      queries on subgraphs under 8,192 base vertices: K8 and K9 launched
-     at W 16,384, K2, K3 and K4 not, every result equal to the host
+     at W 16,384, K6 and K7 not, every result equal to the host
      oracle and the smallest problem's to the CPU route, K8 and K9 at
      most 3 launches each; the largest problem (V 8,192 x W 16,384)
      alone through ``align_global_batch`` with its peak device memory
@@ -147,20 +139,17 @@ Phases, one line each; any failure raises and the exit code is not 0:
 Every CLI phase resets the launch counters just before its run and
 reads them just after; a kernel's ``launches`` are those of the path
 that runs it (K1 and K6: abPOA; K7 and K5: rspoa; K8: long reads,
-abPOA, where K2 and K3 launch no time; K9, and K4, which launches no
-time there: long reads, rspoa; K8 and K9 at W 16,384: the library calls
+abPOA; K9: long reads, rspoa; K8 and K9 at W 16,384: the library calls
 of phase 9).
 
 Then one JSON line of per-kernel results and, last, the device line.
-Each kernel's ``bound_ms`` is the larger of the bytes it must move
-(inputs read once, outputs written once, counted from this run's
-inputs: rows below each problem's nv, pairs inside the band, walk
-steps taken) over 3.35 TB/s and its operations over the peak rate of
-their type (67 TFLOP/s f32, counting int32 there too, and 34 TFLOP/s
-f64, the H100 SXM's data-sheet rates outside the tensor cores); the
-operations per cell, pair or step are counted from the kernels' inner
-loops (``_OPS``).  No single PyTorch call computes any of these
-functions, so ``library_ms`` is null throughout.
+Each kernel's ``ms`` is its mean over two timings through its wrapper,
+``plain_ms`` its plain PyTorch twin's on the same CUDA tensors, and
+``bound_ms`` the least time of the launch it was timed on as the
+benchmark counts it (``vgbench.work``: the problem's own bytes and
+operations, whatever implements it, over one H100's memory rate and
+peak rates).  No single PyTorch call computes any of these functions,
+so ``library_ms`` is null throughout.
 The CLI runs in a temporary directory (the abPOA path writes one
 subgraph GFA per chain), which is removed at the end.
 """
@@ -174,6 +163,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from vgbench.work import F32_OPS_PER_S, F64_OPS_PER_S, bound_s, chain_work, global_work, local_work
 
 N_READS = 12288
 READ_LEN = 100
@@ -189,21 +180,6 @@ LONG_LAUNCHES = 3  # K8's on the long reads' abPOA path: one a (V, W) bucket
 # problems (K6's rows), and of 32 at V 2,048 x W 2,048 (K8's)
 LADDER_CHUNK = {"poa_dp_tb": 1024, "poa_dp_tb_cluster": 32}
 
-# one H100 SXM: memory rate, and peak rates outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
-# operations per unit of work, counted from each kernel's inner loop
-_OPS = {
-    "chain_pair": 40,  # K1/K5, a pair in the band: filters, lengths, gap cost, compare
-    "poa_cell": 40,  # K2/K6, a cell: h_pre, case, slots, scan terms, F1/F2, H, bits
-    "poa_cell_slot": 10,  # K2/K6, a cell and slot: two opens, two extends, maxima, M
-    "tb_step": 30,  # K3/K6, a walk step: decode, state machine, tape entry
-    "local_cell": 10,  # K4/K7, a cell: substitution, floor, cell byte, best
-    "local_cell_slot": 3,  # K4/K7, a cell and slot: max, compare, select
-}
-
-
 def _cuda_ms(fn, reps):
     import torch
 
@@ -217,70 +193,29 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes, ops, ops_per_s):
-    """(bound_ms, bound_by): the larger of the least time for the bytes
-    and the least time for the operations."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound_keys(work, ops_per_s=F32_OPS_PER_S):
+    """A result's bound_ms and bound_by from ``vgbench.work``'s (bytes,
+    operations) of a launch, and its library_ms (none)."""
+    s, by = bound_s(*work, ops_per_s)
+    return dict(bound_ms=s * 1e3, bound_by=by, library_ms=None)
 
 
-def _bound_keys(nbytes, ops, ops_per_s):
-    ms, by = _bound(nbytes, ops, ops_per_s)
-    return dict(bound_ms=ms, bound_by=by, library_ms=None)
+def _chain_bound(args, exact):
+    """The bound keys of a chaining launch on (qb, tb, te, valid)."""
+    work = chain_work(args[3].sum(dim=1).cpu().numpy(), 50, exact)
+    return _bound_keys(work, F64_OPS_PER_S if exact else F32_OPS_PER_S)
 
 
-def _chain_work(args, exact, bandwidth=50):
-    """Bytes and operations of one chaining DP call: inputs qb/tb/te/valid
-    and outputs f/pred/curr_max once each; a pair per valid anchor and
-    each earlier anchor inside the band."""
-    import torch
-
-    qb, _tb, _te, valid = args
-    B, A = qb.shape
-    band = torch.arange(A, device=qb.device).clamp(max=bandwidth)
-    pairs = int((valid.to(torch.int64) * band).sum())
-    wide = 8 if exact else 4  # tb/te and f/curr_max
-    nbytes = B * A * (4 + 2 * wide + 1) + B * A * (wide + 4) + B * wide
-    if exact:
-        nbytes += 8 * 1001  # the gap-cost table
-    return nbytes, pairs * _OPS["chain_pair"]
+def _global_bound(t, tlen):
+    """The bound keys of a global POA launch on t (vcodes, vpred, is_sink,
+    nv, q, nq) whose walks took ``tlen`` steps."""
+    return _bound_keys(global_work(*(x.cpu().numpy() for x in (t[1], t[3], t[5], tlen))))
 
 
-def _poa_dp_work(t):
-    """Bytes and operations of the POA DP on batch t (vcodes, vpred,
-    is_sink, nv, q, nq): the vertex rows below each problem's nv and the
-    other inputs once, score/best_sink, and tbits over those rows, which
-    is all the DP computes."""
-    vcodes, vpred, _sink, nv, q, _nq = t
-    B, V, P = vpred.shape
-    W = q.shape[1] + 1
-    rows = int(nv.sum())
-    cells = rows * W
-    nbytes = rows * (2 + 4 * P) + B * (W - 1) + 8 * B + 4 * W + 8 * B + 4 * cells
-    return nbytes, cells * (_OPS["poa_cell"] + P * _OPS["poa_cell_slot"])
-
-
-def _walk_work(tlen, B, V, W, reads_bits=True):
-    """Bytes and operations of the walks: the decision word and the
-    predecessor id of every step taken (when they are inputs), and the
-    whole tape and tlen written."""
-    steps = int(tlen.sum())
-    nbytes = B * (V + W + 1) * 4 + 4 * B + (8 * steps + 8 * B if reads_bits else 0)
-    return nbytes, steps * _OPS["tb_step"]
-
-
-def _local_work(args):
-    """Bytes and operations of the local POA: the vertex rows below each
-    problem's nv and the other inputs once, the decision byte of every
-    cell below nv, the tape and the scalars."""
-    vcodes, vpred, nv, q, _nq = args
-    B, V, P = vpred.shape
-    W = q.shape[1] + 1
-    rows = int(nv.sum())
-    cells = rows * W
-    nbytes = rows * (1 + 4 * P) + B * (W - 1) + 8 * B + cells + 4 * B * W + 12 * B
-    return nbytes, cells * (_OPS["local_cell"] + P * _OPS["local_cell_slot"])
+def _local_bound(args, tlen):
+    """The bound keys of a local POA launch on args (vcodes, vpred, nv, q,
+    nq) whose walks took ``tlen`` steps."""
+    return _bound_keys(local_work(*(x.cpu().numpy() for x in (args[1], args[2], args[4], tlen))))
 
 
 def _max_abs_err(a, b):
@@ -423,9 +358,9 @@ def phase_chain_kernels(index, reads, dev, results):
           f"{one_k1:.4f} ms ({A} rows, {one_k1 * 1e3 / A:.3f} us a row)")
     _k5_residency("the main launch", main[0].shape[0], dev)
     results["chain_dp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                               **_bound_keys(*_chain_work(fa, False), F32_OPS_PER_S))
+                               **_chain_bound(fa, False))
     results["chain_dp_exact"] = dict(max_abs_err=max(errs_x), ms=ms_x, plain_ms=plain_x,
-                                     **_bound_keys(*_chain_work(main, True), F64_OPS_PER_S))
+                                     **_chain_bound(main, True))
     print(f"[kernels] chaining 4096x256: K1 fast {ms:.3f} ms (plain {plain_ms:.3f} ms), "
           f"K5 exact {ms_x:.3f} ms (plain {plain_x:.3f} ms)")
 
@@ -543,150 +478,27 @@ def _k5_residency(label, B, dev):
         f"the card, against {B} reads at {label} ({-(-B // (per_sm * sms))} wave(s))")
 
 
-def phase_poa_kernels(dev, results):
-    import torch
-
-    from vgaligner_tpu_torch import kernels
-    from vgaligner_tpu_torch.ops import poa_device as PD
-    from vgaligner_tpu_torch.testing import random_poa_batch
-
-    dp_err, tb_err = [], []
-
-    def run_batch(seed, B, V, P, W, **kw):
-        arrs = random_poa_batch(seed, B, V, P, W - 1, **kw)
-        t = [torch.from_numpy(a).to(dev) for a in arrs]
-        init = torch.from_numpy(PD.make_init_row(W - 1)).to(dev)
-        s_k, k_k, tb_k = PD.poa_dp(*t, init)
-        tape_k, tl_k = PD.poa_traceback(tb_k, t[1], k_k, t[5])
-        torch.cuda.synchronize()
-        out = {}
-
-        def plain():
-            out["dp"] = PD.poa_dp_plain(*t, init)
-            out["tb"] = PD.poa_traceback_plain(tb_k, t[1], k_k, t[5])
-
-        plain_ms = _cuda_ms(plain, 1)
-        (s_p, k_p, tb_p), (tape_p, tl_p) = out["dp"], out["tb"]
-        if not (torch.equal(s_k, s_p) and torch.equal(k_k, k_p)):
-            raise AssertionError(f"poa_dp P={P} W={W} V={V}: score/best_sink differ")
-        nv = arrs[3]
-        for b in range(B):
-            if not torch.equal(tb_k[b, : nv[b]], tb_p[b, : nv[b]]):
-                raise AssertionError(f"poa_dp P={P} W={W} V={V}: tbits differ (problem {b})")
-        if not torch.equal(tl_k, tl_p):
-            raise AssertionError(f"poa_traceback P={P} W={W} V={V}: tlen differs")
-        for b in range(B):
-            n = int(tl_k[b])
-            if not torch.equal(tape_k[b, :n], tape_p[b, :n]):
-                raise AssertionError(f"poa_traceback P={P} W={W} V={V}: tape differs ({b})")
-        dp_err.append(_max_abs_err(s_k, s_p))
-        tb_err.append(_max_abs_err(tl_k, tl_p))
-        print(f"[kernels] poa_dp + poa_traceback P={P} W={W} V={V} B={B}: "
-              "score/best_sink/tbits[:nv]/tape[:tlen]/tlen equal")
-        return t, init, tb_k, k_k, (s_p, k_p, tb_p, tape_p, tl_p, plain_ms)
-
-    # no CLI run launches K2 + K3 now (K6 and K8 take their rows), so the
-    # grid is shallow: V 256 only, each plain twin's vertex loop short
-    for P in (2, 4, 8):
-        for W in (128, 256):
-            run_batch(100 + P * 10 + W + 256, 16, 256, P, W)
-    # rows over 1,024 columns (reads over 1,023 bp): several columns a thread
-    for W in (2048, 4096, 8192):
-        run_batch(200 + W + 256, 16, 256, 2, W)
-    # rows of 16,384 columns (reads of 8,192-16,383 bp): K8 takes them
-    # (16 CTAs of 1,024 columns; its grid at V 128 is K8's phase), here
-    # the largest problem the device route gives them: V 8,192 x W 16,384,
-    # nv near V, far predecessors past the pins, with K8 held to the
-    # plain pair run above and timed in turns with K2 + K3, the first
-    # ports no route launches now
-    tw, initw, _tbw, _kw, plainw = run_batch(230, 2, 8192, 4, 16384, far_frac=0.3, min_nv=8000)
-    results["poa_dp_tb_cluster_w16384"] = _wide_k8(
-        f"V 8,192 x W 16,384 (B 2, P 4, nv {tw[3].tolist()}, far predecessors)", tw, initw,
-        plainw, 2)
-    del tw, _tbw, plainw
-    t, init, tbits, sinks, _plain = run_batch(7, 1024, 256, 2, 128)
-    plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
-    plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
-    print(f"[kernels] poa 1024x256x128 P=2 equal; plain poa_dp {plain_dp:.3f} ms, "
-          f"plain poa_traceback {plain_tb:.3f} ms")
-
-    # the lane-padded contract of the JAX package's VMEM-resident DP
-    arrs = random_poa_batch(8, 1024, 256, 2, 100)
-    tp = [torch.from_numpy(a).to(dev) for a in arrs]
-    initp = torch.from_numpy(PD.make_init_row(100)).to(dev)
-    before = kernels.LAUNCHES["poa_dp_tb"]
-    got = PD.poa_global_kernel(*tp, initp)
-    if kernels.LAUNCHES["poa_dp_tb"] != before + 1:
-        raise AssertionError("poa_global_kernel at l_w 128 did not run poa_dp_tb")
-    q_w, init_w = PD.lane_pad(tp[4], initp)
-    s_p, k_p, tb_p = PD.poa_dp_plain(*tp[:4], q_w, tp[5], init_w)
-    want = (s_p,) + PD.poa_traceback_plain(tb_p, tp[1], k_p, tp[5])
-    _check_equal("poa_global_kernel 1024x256 L=100", ("score", "tape", "tlen"), got, want,
-                 dp_err)
-    print(f"[kernels] poa_global_kernel 1024x256 L=100 (l_w {q_w.shape[1] + 1}, on "
-          "poa_dp_tb): score/tape/tlen equal to the plain chain")
-    _tape, tlen = PD.poa_traceback(tbits, t[1], sinks, t[5])
-    results["poa_dp"] = dict(max_abs_err=max(dp_err), plain_ms=plain_dp,
-                             **_bound_keys(*_poa_dp_work(t), F32_OPS_PER_S))
-    results["poa_traceback"] = dict(
-        max_abs_err=max(tb_err), plain_ms=plain_tb,
-        **_bound_keys(*_walk_work(tlen, *tbits.shape), F32_OPS_PER_S))
-    return t, init
-
-
-def _wide_k8(label, t, init, plain, reps):
-    """K8 at W 16,384 against the plain pair's outputs ``plain`` (score,
-    best_sink, tbits, tape, tlen, and its ms) on the same CUDA tensors:
-    score, best_sink, tbits below nv, tape, tlen and n_backing bit for
-    bit; then K8 and K2 + K3 in turns.  Returns K8's result entry."""
-    import torch
-
+def _plain_pair(t, init):
+    """poa_dp_plain then poa_traceback_plain on t: (score, best_sink,
+    tbits, tape, tlen)."""
     from vgaligner_tpu_torch.ops import poa_device as PD
 
-    ws, wk, wtb, wtape, wtl, plain_ms = plain
-    errs = []
-    score, sink, tbits, tape, tlen, n_backing = PD.poa_dp_tb_cluster(*t, init)
-    torch.cuda.synchronize()
-    _check_equal(f"poa_dp_tb_cluster {label}", ("score", "best_sink", "tape", "tlen",
-                                                 "n_backing"),
-                 (score, sink, tape, tlen, n_backing),
-                 (ws, wk, wtape, wtl, PD.backing_rows_plain(t[1], t[3])), errs)
-    below_nv = torch.arange(tbits.shape[1], device=tbits.device)[None, :] < t[3][:, None]
-    if not torch.equal(tbits[below_nv], wtb[below_nv]):
-        raise AssertionError(f"poa_dp_tb_cluster {label}: tbits differ below nv")
-    del tbits
-    k2, k3, k8 = _time_in_turns(t, init, reps, fused=PD.poa_dp_tb_cluster)
-    B, V, P = t[1].shape
-    W = t[4].shape[1] + 1
-    dp_bytes, dp_ops = _poa_dp_work(t)
-    tb_bytes, tb_ops = _walk_work(tlen, B, V, W, False)
-    entry = dict(max_abs_err=max(errs), ms=sum(k8) / 2, plain_ms=plain_ms,
-                 **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
-    k2_b, k2_by = _bound(dp_bytes, dp_ops, F32_OPS_PER_S)
-    k3_b, k3_by = _bound(*_walk_work(tlen, B, V, W), F32_OPS_PER_S)
-    ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, W, V)
-    print(f"[kernels] {label}: K8 equal to the plain pair ({int((n_backing > 0).sum())} "
-          f"problems on its backing store, {int(tlen.sum())} walk steps); in turns "
-          f"{_turns_line(k2, k3, k8, 'K8')}; K8 bound {entry['bound_ms']:.4f} "
-          f"({entry['bound_by']}), K2 bound {k2_b:.4f} ({k2_by}), K3 bound {k3_b:.4f} "
-          f"({k3_by}); {ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared "
-          f"memory a CTA; plain pair {plain_ms:.3f} ms")
-    return entry
+    score, sinks, tbits = PD.poa_dp_plain(*t, init)
+    return (score, sinks, tbits, *PD.poa_traceback_plain(tbits, t[1], sinks, t[5]))
 
 
-def _fused_check(t, init, label, errs, fused=None):
+def _fused_check(t, init, label, errs, fused=None, want=None):
     """K6 (or ``fused``, K8) against poa_dp_plain + poa_traceback_plain on
-    the same CUDA tensors: score, best_sink, tape, tlen and tbits below nv
-    bit for bit, and n_backing equal to backing_rows_plain.  Returns
-    n_backing."""
+    the same CUDA tensors (``want``: their outputs, run already): score,
+    best_sink, tape, tlen and tbits below nv bit for bit, and n_backing
+    equal to backing_rows_plain.  Returns n_backing."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     score, sink, tbits, tape, tlen, n_backing = (fused or PD.poa_dp_tb)(*t, init)
     torch.cuda.synchronize()
-    ws, wk, wtb = PD.poa_dp_plain(*t, init)
-    wtape, wtl = PD.poa_traceback_plain(wtb, t[1], wk, t[5])
+    ws, wk, wtb, wtape, wtl = want or _plain_pair(t, init)
     _check_equal(label, ("score", "best_sink", "tape", "tlen", "n_backing"),
                  (score, sink, tape, tlen, n_backing),
                  (ws, wk, wtape, wtl, PD.backing_rows_plain(t[1], t[3])), errs)
@@ -696,28 +508,31 @@ def _fused_check(t, init, label, errs, fused=None):
     return n_backing
 
 
-def _time_in_turns(t, init, reps=10, fused=None):
-    """K2 + K3 and a fused kernel (K6, or ``fused``) on the same CUDA
-    tensors, after a warm-up, in turns K2 + K3, fused, fused, K2 + K3:
-    lists of K2, K3 and fused ms, two turns each."""
+def _fused_ms(t, init, fused, reps):
+    """A fused kernel (K6 or K8) through its wrapper with the host's
+    backing-row counts, after a warm-up, timed twice on t: ([ms, ms],
+    tlen)."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
-    fused = fused or PD.poa_dp_tb
     back = PD.backing_rows_plain(t[1], t[3]).cpu().numpy()
-    _s, sinks, tbits = PD.poa_dp(*t, init)
-    PD.poa_traceback(tbits, t[1], sinks, t[5])
-    fused(*t, init, back)
+    tlen = fused(*t, init, back)[4]
     torch.cuda.synchronize()
-    k2, k3, k6 = [], [], []
-    for turn in ("old", "new", "new", "old"):
-        if turn == "old":
-            k2.append(_cuda_ms(lambda: PD.poa_dp(*t, init), reps))
-            k3.append(_cuda_ms(lambda: PD.poa_traceback(tbits, t[1], sinks, t[5]), reps))
-        else:
-            k6.append(_cuda_ms(lambda: fused(*t, init, back), reps))
-    return k2, k3, k6
+    return [_cuda_ms(lambda: fused(*t, init, back), reps) for _ in range(2)], tlen
+
+
+def _fused_timed(t, init, fused, reps=10, plain_ms=None):
+    """``_fused_ms`` beside the plain pair (``plain_ms``, or timed here
+    once).  Returns the kernel's result entry (ms, plain_ms, bound) and
+    the line that reports it."""
+    ms, tlen = _fused_ms(t, init, fused, reps)
+    if plain_ms is None:
+        plain_ms = _cuda_ms(lambda: _plain_pair(t, init), 1)
+    entry = dict(ms=sum(ms) / 2, plain_ms=plain_ms, **_global_bound(t, tlen))
+    line = (f"{ms[0]:.4f}, {ms[1]:.4f} ms, plain pair {plain_ms:.3f} ms, bound "
+            f"{entry['bound_ms']:.4f} ({entry['bound_by']})")
+    return entry, line
 
 
 def _plan_turns(t, init, fused, chunk, reps=10):
@@ -751,14 +566,10 @@ def _plan_turns(t, init, fused, chunk, reps=10):
     return one, old, len(cuts)
 
 
-def _turns_line(k2, k3, k6, name="K6"):
-    return (f"K2 + K3 {k2[0]:.4f} + {k3[0]:.4f}, {name} {k6[0]:.4f}, {name} {k6[1]:.4f}, "
-            f"K2 + K3 {k2[1]:.4f} + {k3[1]:.4f} ms")
-
-
-def phase_fused_kernel(dev, results, main_t, main_init):
+def phase_fused_kernel(dev, results):
     import torch
 
+    from vgaligner_tpu_torch import kernels
     from vgaligner_tpu_torch.ops import poa_device as PD
     from vgaligner_tpu_torch.testing import random_poa_batch
 
@@ -775,35 +586,43 @@ def phase_fused_kernel(dev, results, main_t, main_init):
             print(f"[kernels] poa_dp_tb P={P} W={W} V=256 B=64: equal to the plain pair; "
                   f"{int((nb > 0).sum())} problems on the backing store (max "
                   f"{int(nb.max())} rows)")
-    nb = _fused_check(main_t, main_init, "poa_dp_tb 1024x256x128", errs)
+    # the main path's chunk shape
+    t = [torch.from_numpy(a).to(dev) for a in random_poa_batch(7, 1024, 256, 2, 127)]
+    init = torch.from_numpy(PD.make_init_row(127)).to(dev)
+    nb = _fused_check(t, init, "poa_dp_tb 1024x256x128", errs)
     warps, blocks, smem = PD.poa_dp_tb_occupancy(2, 128, 256)
     print(f"[kernels] poa_dp_tb 1024x256x128 P=2: equal to the plain pair "
           f"({int((nb > 0).sum())} problems on the backing store); {warps} problems a "
           f"block, {blocks} blocks an SM, {smem} B shared memory a block: "
           f"{warps * blocks * torch.cuda.get_device_properties(dev).multi_processor_count} "
           "problems resident")
-    k2, k3, k6 = _time_in_turns(main_t, main_init)
-    plain = _cuda_ms(lambda: _plain_pair(main_t, main_init), 1)
-    tlen = PD.poa_dp_tb(*main_t, main_init)[4]
-    dp_bytes, dp_ops = _poa_dp_work(main_t)
-    tb_bytes, tb_ops = _walk_work(tlen, *main_t[1].shape[:2], main_init.shape[0], False)
-    results["poa_dp"]["ms"] = sum(k2) / 2
-    results["poa_traceback"]["ms"] = sum(k3) / 2
-    results["poa_dp_tb"] = dict(max_abs_err=max(errs), ms=sum(k6) / 2, plain_ms=plain,
-                                **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops,
-                                              F32_OPS_PER_S))
-    print(f"[kernels] 1024x256x128 P=2 in turns: {_turns_line(k2, k3, k6)}; K6 plain pair "
-          f"{plain:.3f} ms, bound {results['poa_dp_tb']['bound_ms']:.4f} ms "
-          f"({results['poa_dp_tb']['bound_by']})")
+    entry, line = _fused_timed(t, init, PD.poa_dp_tb)
+    print(f"[kernels] K6 1024x256x128 P=2: {line}")
+
+    # the lane-padded contract of the JAX package's VMEM-resident DP
+    arrs = random_poa_batch(8, 1024, 256, 2, 100)
+    tp = [torch.from_numpy(a).to(dev) for a in arrs]
+    initp = torch.from_numpy(PD.make_init_row(100)).to(dev)
+    before = kernels.LAUNCHES["poa_dp_tb"]
+    got = PD.poa_global_kernel(*tp, initp)
+    if kernels.LAUNCHES["poa_dp_tb"] != before + 1:
+        raise AssertionError("poa_global_kernel at l_w 128 did not run poa_dp_tb")
+    q_w, init_w = PD.lane_pad(tp[4], initp)
+    s_p, k_p, tb_p = PD.poa_dp_plain(*tp[:4], q_w, tp[5], init_w)
+    want = (s_p,) + PD.poa_traceback_plain(tb_p, tp[1], k_p, tp[5])
+    _check_equal("poa_global_kernel 1024x256 L=100", ("score", "tape", "tlen"), got, want, errs)
+    print(f"[kernels] poa_global_kernel 1024x256 L=100 (l_w {q_w.shape[1] + 1}, on "
+          "poa_dp_tb): score/tape/tlen equal to the plain chain")
+    results["poa_dp_tb"] = dict(max_abs_err=max(errs), **entry)
 
 
 def phase_cluster_kernel(dev, results):
     """K8 at every width of CLUSTER_WIDTHS x P 2/4/8 on far and near
     batches (far predecessors, pin overflow, a predecessor at and past its
-    vertex, nv = 4), at V 8,192 x W 2,048, and at W 8,192 x V 1,024; at W
-    16,384 (16 CTAs of 1,024 columns) timed in turns with K2 + K3; its
-    cluster occupancy and ptxas report of each instance (P / columns a
-    CTA)."""
+    vertex, nv = 4), at V 8,192 x W 2,048, and at W 8,192 x V 1,024, timed
+    alone at W 16,384 (16 CTAs of 1,024 columns); at V 8,192 x W 16,384 held to
+    the plain pair and timed beside it; its cluster occupancy and ptxas
+    report of each instance (P / columns a CTA)."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -832,86 +651,30 @@ def phase_cluster_kernel(dev, results):
               f"rows); {ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared "
               "memory a CTA")
         if W == 16384:
-            k2, k3, k8 = _time_in_turns(t, init, 5, fused=PD.poa_dp_tb_cluster)
-            print(f"[kernels] K8 P={P} W={W} V={V} B={B} in turns: "
-                  f"{_turns_line(k2, k3, k8, 'K8')}")
+            ms, _tlen = _fused_ms(t, init, PD.poa_dp_tb_cluster, 5)
+            print(f"[kernels] K8 P={P} W={W} V={V} B={B}: {ms[0]:.4f}, {ms[1]:.4f} ms")
     regs = _ptxas(kernels.build_log, "poa_dp_tb_cluster_kernel")
     print(f"[kernels] K8: {on_backing} problems of the grid on the backing store; ptxas (P/"
           "columns a CTA: registers, spill store/load bytes): " + "; ".join(
               f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
     results["poa_dp_tb_cluster"] = dict(max_abs_err=max(errs))
-
-
-def _plain_pair(t, init):
-    from vgaligner_tpu_torch.ops import poa_device as PD
-
-    _s, sinks, tbits = PD.poa_dp_plain(*t, init)
-    return PD.poa_traceback_plain(tbits, t[1], sinks, t[5])
-
-
-def phase_local_kernel(dev, results):
-    import torch
-
-    from vgaligner_tpu_torch.ops import poa_device as PD
-    from vgaligner_tpu_torch.testing import (random_local_batch, random_poa_batch,
-                                             with_local_edge_cases)
-
-    errs = []
-    for P in (2, 4, 8):
-        for W in (128, 256, 2048):
-            for V in (256, 2048):
-                vcodes, vpred, _sink, nv, q, nq = random_poa_batch(P + W + V, 32, V, P, W - 1)
-                q[0] = 4  # no positive cell
-                n = min(V, W - 1) // 2
-                q[1:, :n] = vcodes[1:, :n]  # long local matches
-                t = [torch.from_numpy(a).to(dev) for a in (vcodes, vpred, nv, q, nq)]
-                got = PD.poa_local_block(*t)
-                want = PD.poa_local_plain(*t)
-                _check_equal(f"poa_local P={P} W={W} V={V}", ("best", "tape", "tlen", "qend"),
-                             got, want, errs)
-                if float(got[0][0]) != 0.0 or not bool((nv < V).any()):
-                    raise AssertionError("poa_local batch lacks its edge cases")
-                print(f"[kernels] poa_local (K4) P={P} W={W} V={V} B=32: best/tape/tlen/qend "
-                      f"equal (max tlen {int(got[2].max())})")
-    # rows of 16,384 columns (reads of 8,192-16,383 bp): K9 takes them (8
-    # CTAs of 2,048 columns); K4, the first port no route launches now, is
-    # held and timed in turns with it
-    names = ("best", "tape", "tlen", "qend")
+    # the largest problem the device route gives rows of 16,384 columns
+    # (reads of 8,192-16,383 bp): V 8,192 x W 16,384, nv near V, far
+    # predecessors past the pins
     t = [torch.from_numpy(a).to(dev)
-         for a in with_local_edge_cases(random_local_batch(16, 8, 128, 4, 16383, far_frac=0.3))]
-    want = PD.poa_local_plain(*t)
-    _check_equal("poa_local (K4) W=16384", names, PD.poa_local_block(*t), want, errs)
-    k9_errs = []
-    _check_equal("poa_local (K9 through the route) W=16384", names, PD.poa_local(*t), want,
-                 k9_errs)
-    turns, line = _local_turns(t, "K9")
-    plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*t), 1)
-    results["poa_local"] = dict(max_abs_err=max(errs), ms=sum(turns["K4", "wrapper"]) / 2,
-                                plain_ms=plain_ms, **_bound_keys(*_local_work(t), F32_OPS_PER_S))
-    print(f"[kernels] poa_local W 16,384 (B 8, V 128, P 4): K4 and K9 (through poa_local) equal "
-          f"to the twin; in turns {line} ms (bound {results['poa_local']['bound_ms']:.4f}, "
-          f"{results['poa_local']['bound_by']}; plain {plain_ms:.3f})")
-    # the largest problem the device route gives them: V 8,192 x W 16,384
-    t = [torch.from_numpy(a).to(dev)
-         for a in random_local_batch(17, 2, 8192, 4, 16383, far_frac=0.3, min_nv=8000)]
-    out = {}
-    plain_ms = _cuda_ms(lambda: out.update(want=PD.poa_local_plain(*t)), 1)
-    _check_equal("poa_local (K4) V 8,192 x W 16,384", names, PD.poa_local_block(*t),
-                 out["want"], errs)
-    _check_equal("poa_local_cluster (K9) V 8,192 x W 16,384", names,
-                 PD.poa_local_cluster(*t)[:4], out["want"], k9_errs)
-    results["poa_local"]["max_abs_err"] = max(errs)
-    turns, line = _local_turns(t, "K9", reps=3)
-    P = t[1].shape[-1]
-    ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, 16384, 8192)
-    results["poa_local_cluster_w16384"] = dict(
-        max_abs_err=max(k9_errs), ms=sum(turns["K9", "wrapper"]) / 2, plain_ms=plain_ms,
-        **_bound_keys(*_local_work(t), F32_OPS_PER_S))
-    k9 = results["poa_local_cluster_w16384"]
-    print(f"[kernels] poa_local V 8,192 x W 16,384 (B 2, P {P}, nv {t[2].tolist()}, max tlen "
-          f"{int(out['want'][2].max())}): K4 and K9 equal to the twin; in turns {line} ms; K9 "
-          f"bound {k9['bound_ms']:.4f} ({k9['bound_by']}), {ctas} CTAs a cluster, {clusters} "
-          f"clusters resident, {smem} B shared memory a CTA; plain {plain_ms:.3f} ms")
+         for a in random_poa_batch(230, 2, 8192, 4, 16383, far_frac=0.3, min_nv=8000)]
+    init = torch.from_numpy(PD.make_init_row(16383)).to(dev)
+    out, errs = {}, []
+    plain_ms = _cuda_ms(lambda: out.update(want=_plain_pair(t, init)), 1)
+    label = f"V 8,192 x W 16,384 (B 2, P 4, nv {t[3].tolist()}, far predecessors)"
+    nb = _fused_check(t, init, f"poa_dp_tb_cluster {label}", errs, PD.poa_dp_tb_cluster,
+                      out.pop("want"))
+    entry, line = _fused_timed(t, init, PD.poa_dp_tb_cluster, 2, plain_ms)
+    results["poa_dp_tb_cluster_w16384"] = dict(max_abs_err=max(errs), **entry)
+    ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(4, 16384, 8192)
+    print(f"[kernels] {label}: K8 equal to the plain pair ({int((nb > 0).sum())} problems on "
+          f"its backing store); {line}; {ctas} CTAs a cluster, {clusters} clusters resident, "
+          f"{smem} B shared memory a CTA")
 
 
 def _ptxas(log, kernel):
@@ -1042,7 +805,9 @@ def phase_local_cluster_kernel(dev, results):
     at and past its vertex, nv = 4 and 0), and on chains whose best run
     takes a far edge, pinned and on the backing store, exactly where a
     CTA's columns start (W 4,096, 8,192 and 16,384); its cluster
-    occupancy and ptxas report."""
+    occupancy and ptxas report; at W 16,384 (B 8 x V 128 through
+    ``poa_local``, and V 8,192 x W 16,384) held to the twin and timed
+    beside it."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -1091,6 +856,36 @@ def phase_local_cluster_kernel(dev, results):
           "store/load bytes): "
           + "; ".join(f"{a}: {r}, {st}/{ld}" for a, r, st, ld in regs))
     results["poa_local_cluster"] = dict(max_abs_err=max(errs))
+    # rows of 16,384 columns (reads of 8,192-16,383 bp) through the route:
+    # 8 CTAs of 2,048 columns
+    names, errs = names[:4], []
+    t = [torch.from_numpy(a).to(dev)
+         for a in with_local_edge_cases(random_local_batch(16, 8, 128, 4, 16383, far_frac=0.3))]
+    want = PD.poa_local_plain(*t)
+    _check_equal("poa_local (K9 through the route) W=16384", names, PD.poa_local(*t), want, errs)
+    times, line = _local_timed(t, "K9")
+    plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*t), 1)
+    bound = _local_bound(t, want[2])
+    print(f"[kernels] poa_local W 16,384 (B 8, V 128, P 4): K9 (through poa_local) equal to the "
+          f"twin; {line} ms (bound {bound['bound_ms']:.4f}, {bound['bound_by']}; plain "
+          f"{plain_ms:.3f})")
+    # the largest problem the device route gives them: V 8,192 x W 16,384
+    t = [torch.from_numpy(a).to(dev)
+         for a in random_local_batch(17, 2, 8192, 4, 16383, far_frac=0.3, min_nv=8000)]
+    out = {}
+    plain_ms = _cuda_ms(lambda: out.update(want=PD.poa_local_plain(*t)), 1)
+    _check_equal("poa_local_cluster (K9) V 8,192 x W 16,384", names,
+                 PD.poa_local_cluster(*t)[:4], out["want"], errs)
+    times, line = _local_timed(t, "K9", reps=3)
+    P = t[1].shape[-1]
+    ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, 16384, 8192)
+    results["poa_local_cluster_w16384"] = k9 = dict(
+        max_abs_err=max(errs), ms=sum(times["wrapper"]) / 2, plain_ms=plain_ms,
+        **_local_bound(t, out["want"][2]))
+    print(f"[kernels] poa_local V 8,192 x W 16,384 (B 2, P {P}, nv {t[2].tolist()}, max tlen "
+          f"{int(out['want'][2].max())}): K9 equal to the twin; {line} ms; bound "
+          f"{k9['bound_ms']:.4f} ({k9['bound_by']}), {ctas} CTAs a cluster, {clusters} clusters "
+          f"resident, {smem} B shared memory a CTA; plain {plain_ms:.3f} ms")
 
 
 def _rows_for(path, names):
@@ -1201,8 +996,7 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
         took, launches = _drive("the main path", prefix, fasta, gfa, out,
                                 ["-p", "abpoa", "--precision", "auto", "-t", "0"],
                                 ("chain_dp", "poa_dp_tb"),
-                                ("poa_dp", "poa_traceback", "poa_dp_tb_cluster",
-                                 "poa_local_cluster"))
+                                ("poa_dp_tb_cluster", "poa_local_cluster"))
     finally:
         PD.poa_dp_tb = real
         torch.multiprocessing.spawn = spawn
@@ -1234,25 +1028,18 @@ def phase_main_path(work, prefix, gfa, fasta, reads, card, results):
     t, init = args[:6], args[6]
     errs = []
     _fused_check(t, init, "poa_dp_tb on the main reads' largest launch", errs)
-    k2, k3, k6 = _time_in_turns(t, init)
+    entry, line = _fused_timed(t, init, PD.poa_dp_tb)
     one, ladder, n_ladder = _plan_turns(t, init, PD.poa_dp_tb, LADDER_CHUNK["poa_dp_tb"])
-    plain = _cuda_ms(lambda: _plain_pair(t, init), 1)
     B, V = t[0].shape
-    tlen = PD.poa_dp_tb(*t, init)[4]
-    dp_bytes, dp_ops = _poa_dp_work(t)
-    tb_bytes, tb_ops = _walk_work(tlen, B, V, init.shape[0], False)
     warps, blocks, smem = PD.poa_dp_tb_occupancy(t[1].shape[-1], init.shape[0], V)
     sms = torch.cuda.get_device_properties(t[0].device).multi_processor_count
     results["poa_dp_tb"].update(
-        max_abs_err=max(results["poa_dp_tb"]["max_abs_err"], *errs), ms=sum(k6) / 2,
-        plain_ms=plain, **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
-    k6r = results["poa_dp_tb"]
+        max_abs_err=max(results["poa_dp_tb"]["max_abs_err"], *errs), **entry)
     print(f"[main] largest launch B={B} V={V} W={init.shape[0]} P={t[1].shape[-1]} mean nv "
-          f"{float(t[3].float().mean()):.1f}: equal to the plain pair; in turns "
-          f"{_turns_line(k2, k3, k6)}; K6 bound {k6r['bound_ms']:.4f} ({k6r['bound_by']}), "
-          f"plain pair {plain:.3f} ms; {warps} problems a block, {blocks} blocks an SM, {smem} B "
-          f"shared memory a block, {min(B, warps * blocks * sms)} of {B} problems resident at "
-          f"once ({min(B, warps * blocks * sms) / sms:.2f} warps an SM); one launch against the "
+          f"{float(t[3].float().mean()):.1f}: equal to the plain pair; K6 {line}; {warps} "
+          f"problems a block, {blocks} blocks an SM, {smem} B shared memory a block, "
+          f"{min(B, warps * blocks * sms)} of {B} problems resident at once "
+          f"({min(B, warps * blocks * sms) / sms:.2f} warps an SM); one launch against the "
           f"ladder plan's {n_ladder} launches of at most {LADDER_CHUNK['poa_dp_tb']}, in turns: "
           f"ladder {ladder[0]:.4f}, one {one[0]:.4f}, one {one[1]:.4f}, ladder {ladder[1]:.4f} "
           f"ms ({card})")
@@ -1328,11 +1115,9 @@ def phase_sharded(work, prefix, gfa, fasta, main_out, card):
 
 
 def _local_kernel_only(args, kind):
-    """One launch of K7 (``kind`` "warp"), K9 ("cluster") or K4
-    ("block") through its C entry on buffers allocated once (K7's and
-    K9's backing rows those the host counts, K4's H and cell plane
-    zeroed once): the kernel's own time, without the wrapper's
-    allocations and K4's zero-fill."""
+    """One launch of K7 (``kind`` "warp") or K9 ("cluster") through its C
+    entry on buffers allocated once, its backing rows those the host
+    counts: the kernel's own time, without the wrapper's allocations."""
     import torch
 
     from vgaligner_tpu_torch import kernels
@@ -1342,61 +1127,43 @@ def _local_kernel_only(args, kind):
     B, V = vcodes.shape
     P, L = vpred.shape[-1], q.shape[1]
     W, dev = L + 1, vcodes.device
-    so = kernels.lib()
     outs = [torch.empty(B, dtype=torch.float32, device=dev),
             torch.empty((B, W), dtype=torch.int32, device=dev),
             torch.empty(B, dtype=torch.int32, device=dev),
             torch.empty(B, dtype=torch.int32, device=dev)]
-    ins = [a.data_ptr() for a in (vcodes, vpred, nv, q)]
-    stream = kernels.stream_ptr(dev)
-    if kind in ("cluster", "warp"):
-        off = torch.from_numpy(PD._back_offsets(vpred, nv, None)).to(dev)
-        scratch = [off, torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev),
-                   torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
-        nb = torch.empty(B, dtype=torch.int32, device=dev)
-        ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), stream]
-        name = f"poa_local_{kind}"
-        return _c_call(getattr(so, f"vg_{name}"), ptrs, name, scratch, outs, nb)
-    scratch = [torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev),
-               torch.zeros((B, V, W), dtype=torch.uint8, device=dev)]
-    ptrs = [*ins, B, V, P, L, *(x.data_ptr() for x in scratch + outs), stream]
-    return _c_call(so.vg_poa_local, ptrs, "poa_local", scratch, outs)
+    off = torch.from_numpy(PD._back_offsets(vpred, nv, None)).to(dev)
+    scratch = [off, torch.empty((max(int(off[-1]), 1), W), dtype=torch.int16, device=dev),
+               torch.empty((B, V, W), dtype=torch.uint8, device=dev)]
+    nb = torch.empty(B, dtype=torch.int32, device=dev)
+    ptrs = [*(a.data_ptr() for a in (vcodes, vpred, nv, q)), B, V, P, L,
+            *(x.data_ptr() for x in scratch + outs), nb.data_ptr(), kernels.stream_ptr(dev)]
+    name = f"poa_local_{kind}"
+    return _c_call(getattr(kernels.lib(), f"vg_{name}"), ptrs, name, scratch, outs, nb)
 
 
-
-def _local_turns(args, new="K7", reps=10):
-    """K4 and ``new`` (K7 or K9, with the host's backing-row counts) on
-    the same CUDA tensors, after a warm-up, in turns K4, new, new, K4:
-    through their wrappers, then as kernels alone.  Returns {(kernel,
-    how): [ms, ms]} and the line that reports them."""
+def _local_timed(args, new="K7", reps=10):
+    """K7 or K9 (``new``, with the host's backing-row counts) on the same
+    CUDA tensors, after a warm-up, timed twice through its wrapper and
+    twice as the kernel alone.  Returns {how: [ms, ms]} and the line that
+    reports them."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     back = PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS).cpu().numpy()
     kernel = PD.poa_local_warp if new == "K7" else PD.poa_local_cluster
-    wrapper = lambda: kernel(*args, back)  # noqa: E731
-    fns = {("K4", "wrapper"): lambda: PD.poa_local_block(*args),
-           (new, "wrapper"): wrapper,
-           ("K4", "kernel"): _local_kernel_only(args, "block"),
-           (new, "kernel"): _local_kernel_only(args, "warp" if new == "K7" else "cluster")}
+    fns = {"wrapper": lambda: kernel(*args, back),
+           "kernel": _local_kernel_only(args, "warp" if new == "K7" else "cluster")}
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    out = {key: [] for key in fns}
-    parts = {"wrapper": [], "kernel": []}
-    for how in ("wrapper", "kernel"):
-        for name in ("K4", new, new, "K4"):
-            out[name, how].append(_cuda_ms(fns[name, how], reps))
-            parts[how].append(f"{name} {out[name, how][-1]:.4f}")
-    line = (f"through the wrappers {', '.join(parts['wrapper'])}; kernels alone "
-            f"{', '.join(parts['kernel'])}")
+    out = {how: [_cuda_ms(fn, reps) for _ in range(2)] for how, fn in fns.items()}
+    line = (f"{new} through its wrapper {out['wrapper'][0]:.4f}, {out['wrapper'][1]:.4f}; "
+            f"kernel alone {out['kernel'][0]:.4f}, {out['kernel'][1]:.4f}")
     return out, line
 
 
 def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
-    import torch
-
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     captured = {}
@@ -1406,7 +1173,7 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
         took, launches = _drive("the rspoa path", prefix, fasta, gfa, out,
                                 ["-p", "rspoa", "--precision", "exact"],
                                 ("chain_dp_exact", "poa_local_warp"),
-                                ("chain_dp", "poa_dp", "poa_local", "poa_dp_tb_cluster",
+                                ("chain_dp", "poa_dp_tb", "poa_dp_tb_cluster",
                                  "poa_local_cluster"))
     finally:
         PD.poa_local = real
@@ -1428,29 +1195,26 @@ def phase_rspoa_path(work, prefix, gfa, fasta, reads, card, dev, results):
     want = PD.poa_local_plain(*args)
     got = PD.poa_local_warp(*args, back)
     names = ("best", "tape", "tlen", "qend", "n_backing")
-    errs, errs4 = [], []
+    errs = []
     _check_equal("poa_local_warp on the main reads' batch", names, got,
                  (*want, PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS)),
                  errs)  # n_backing: the kernel's count, equal to the host's back
     if got[4].cpu().numpy().tolist() != back.tolist():
         raise AssertionError("poa_local_warp on the main reads' batch: the route's back_rows "
                              "differ from the kernel's count")
-    _check_equal("poa_local (K4) on the main reads' batch", names[:4],
-                 PD.poa_local_block(*args), want, errs4)
-    turns, line = _local_turns(args)
+    times, line = _local_timed(args)
     plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
     B, V = args[0].shape
     W, P = args[3].shape[1] + 1, args[1].shape[-1]
-    bound = _bound_keys(*_local_work(args), F32_OPS_PER_S)
+    bound = _local_bound(args, want[2])
     print(f"[rspoa] local POA on the main reads' largest batch B={B} V={V} W={W} P={P}, mean "
-          f"nv {float(args[2].float().mean()):.2f}: K7 and K4 equal to the twin, "
-          f"{int((got[4] > 0).sum())} problems on K7's backing store; in turns {line} ms; "
+          f"nv {float(args[2].float().mean()):.2f}: K7 equal to the twin, "
+          f"{int((got[4] > 0).sum())} problems on K7's backing store; {line} ms; "
           f"plain {plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
           f"({card})")
-    results["poa_local"]["max_abs_err"] = max(results["poa_local"]["max_abs_err"], *errs4)
     results["poa_local_warp"].update(
         max_abs_err=max(results["poa_local_warp"]["max_abs_err"], *errs),
-        ms=sum(turns["K7", "wrapper"]) / 2, plain_ms=plain_ms, **bound)
+        ms=sum(times["wrapper"]) / 2, plain_ms=plain_ms, **bound)
     _local_warp_memory(args, back, card)
     return launches
 
@@ -1516,7 +1280,7 @@ def _long_chain_launch(label, args, exact, card):
     if exact:
         _k5_residency("the long launch", args[0].shape[0], args[0].device)
     ms = _cuda_ms(lambda: fn(*args), 10)
-    bound = _bound_keys(*_chain_work(args[:4], exact), F64_OPS_PER_S if exact else F32_OPS_PER_S)
+    bound = _chain_bound(args[:4], exact)
     B, A = args[0].shape
     last = torch.where(args[3], torch.arange(A, device=args[3].device), -1).max(dim=1).values + 1
     print(f"[long] {label} on the long reads' launch B {B} x A {A}: equal to the twin; "
@@ -1547,7 +1311,7 @@ def phase_long_reads(work, prefix, gfa, graph, card, results):
     try:
         took, launches = _drive("the long-read path", prefix, fasta, gfa, out, argv,
                                 ("chain_dp", "poa_dp_tb_cluster"),
-                                ("poa_dp", "poa_traceback", "poa_dp_tb", "poa_local_cluster"))
+                                ("poa_dp_tb", "poa_local_cluster"))
     finally:
         PD.poa_dp_tb_cluster = real
         C.chain_dp = real_k1
@@ -1585,10 +1349,10 @@ def phase_long_reads(work, prefix, gfa, graph, card, results):
 
 def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
     """The rspoa route over the long reads, whose local POA rows are of
-    512-8,192 columns: K9 and K5 launched, K4, K7 and K1 not; both GAFs
+    512-8,192 columns: K9 and K5 launched, K7, K1, K6 and K8 not; both GAFs
     byte-identical to the CPU plain path; each launch's shape and bytes
     under the route's budget, and K9 held against its twin on each; K5
-    held and timed on its launch; K9 and K4 timed in turns on the largest
+    held and timed on its launch; K9 timed beside the twin on the largest
     local POA batch."""
     import numpy as np
 
@@ -1613,8 +1377,8 @@ def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
     try:
         took, launches = _drive("the long-read rspoa path", prefix, fasta, gfa, out, argv,
                                 ("chain_dp_exact", "poa_local_cluster"),
-                                ("poa_local", "poa_local_warp", "chain_dp", "poa_dp",
-                                 "poa_traceback", "poa_dp_tb", "poa_dp_tb_cluster"))
+                                ("poa_local_warp", "chain_dp", "poa_dp_tb",
+                                 "poa_dp_tb_cluster"))
     finally:
         PD.poa_local = real
         C.chain_dp_exact = real_k5
@@ -1635,94 +1399,61 @@ def _long_rspoa(work, prefix, gfa, fasta, reads, card, results):
 
 def _long_local_batches(batches, card, results):
     """K9 held against the twin on every batch of the long-read rspoa
-    leg; on the largest, K4 held too, K4 and K9 timed in turns, and K9's
-    bound from that batch."""
+    leg; on the largest, K9 timed beside the twin and its bound from
+    that batch."""
     import torch
 
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     names = ("best", "tape", "tlen", "qend", "n_backing")
-    errs9, errs4, on_backing = [], [], 0
+    errs, on_backing = [], 0
     for i, args in enumerate(batches):
         back = PD.backing_rows_plain(args[1], args[2], PD.LOCAL_RING, PD.LOCAL_PINS)
         _check_equal(f"poa_local_cluster (K9) on the long reads' batch {i}", names,
-                     PD.poa_local_cluster(*args), (*PD.poa_local_plain(*args), back), errs9)
+                     PD.poa_local_cluster(*args), (*PD.poa_local_plain(*args), back), errs)
         on_backing += int((back > 0).sum())
     args = max(batches, key=lambda a: int(a[2].sum()) * a[3].shape[1])
-    _check_equal("poa_local (K4) on the long reads' largest batch", names[:4],
-                 PD.poa_local_block(*args), PD.poa_local_plain(*args), errs4)
-    turns, line = _local_turns(args, "K9")
-    plain_ms = _cuda_ms(lambda: PD.poa_local_plain(*args), 1)
-    bound = _bound_keys(*_local_work(args), F32_OPS_PER_S)
-    results["poa_local"]["max_abs_err"] = max(results["poa_local"]["max_abs_err"], *errs4)
+    times, line = _local_timed(args, "K9")
+    out = {}
+    plain_ms = _cuda_ms(lambda: out.update(want=PD.poa_local_plain(*args)), 1)
+    bound = _local_bound(args, out["want"][2])
     results["poa_local_cluster"].update(
-        max_abs_err=max(results["poa_local_cluster"]["max_abs_err"], *errs9),
-        ms=sum(turns["K9", "wrapper"]) / 2, plain_ms=plain_ms, **bound)
+        max_abs_err=max(results["poa_local_cluster"]["max_abs_err"], *errs),
+        ms=sum(times["wrapper"]) / 2, plain_ms=plain_ms, **bound)
     B, V = args[0].shape
     W, P = args[3].shape[1] + 1, args[1].shape[-1]
     ctas, clusters, smem = PD.poa_local_cluster_occupancy(P, W, V)
     torch.cuda.synchronize()
     print(f"[long] K9 equal to the twin on each of the {len(batches)} rspoa batches "
           f"({on_backing} problems on its backing store); largest B={B} V={V} W={W} P={P} mean nv "
-          f"{float(args[2].float().mean()):.1f} (max {int(args[2].max())}): K4 equal to the "
-          f"twin; K4 and K9 in turns {line} ms; K9 {ctas} CTAs a cluster, {clusters} clusters "
-          f"resident, {smem} B shared memory a CTA; bound {bound['bound_ms']:.4f} "
-          f"({bound['bound_by']}); plain {plain_ms:.3f} ms ({card})")
+          f"{float(args[2].float().mean()):.1f} (max {int(args[2].max())}): {line} ms; K9 "
+          f"{ctas} CTAs a cluster, {clusters} clusters resident, {smem} B shared memory a CTA; "
+          f"bound {bound['bound_ms']:.4f} ({bound['bound_by']}); plain {plain_ms:.3f} ms ({card})")
 
 
 def _long_chunk_kernels(args, card, results):
-    """K8, and K2 + K3, on the long-read path's largest launch: held
-    against the twins (score, best_sink, tbits below nv; tape and tlen),
-    timed in turns (K2 + K3, K8, K8, K2 + K3) and against the ladder plan
-    (``_plan_turns``), and bounded from that launch."""
-    import torch
-
+    """K8 on the long-read path's largest launch: held against the plain
+    pair (score, best_sink, tbits below nv; tape and tlen), timed beside
+    it and against the ladder plan (``_plan_turns``), and bounded from
+    that launch."""
     from vgaligner_tpu_torch.ops import poa_device as PD
 
     t, init = args[:6], args[6]
-    errs, errs8 = [], []
-    nb = _fused_check(t, init, "poa_dp_tb_cluster on the long reads' largest launch", errs8,
+    errs = []
+    nb = _fused_check(t, init, "poa_dp_tb_cluster on the long reads' largest launch", errs,
                       PD.poa_dp_tb_cluster)
-    score, sinks, tbits = PD.poa_dp(*t, init)
-    tape, tlen = PD.poa_traceback(tbits, t[1], sinks, t[5])
-    torch.cuda.synchronize()
-    ws, wk, wtb = PD.poa_dp_plain(*t, init)
-    _check_equal("poa_dp on the long reads' largest launch", ("score", "best_sink"),
-                 (score, sinks), (ws, wk), errs)
-    below_nv = torch.arange(tbits.shape[1], device=tbits.device)[None, :] < t[3][:, None]
-    if not torch.equal(tbits[below_nv], wtb[below_nv]):
-        raise AssertionError("poa_dp on the long reads' largest launch: tbits differ below nv")
-    wtape, wtl = PD.poa_traceback_plain(tbits, t[1], sinks, t[5])
-    _check_equal("poa_traceback on the long reads' largest launch", ("tape", "tlen"),
-                 (tape, tlen), (wtape, wtl), errs)
-    k2, k3, k8 = _time_in_turns(t, init, fused=PD.poa_dp_tb_cluster)
+    entry, line = _fused_timed(t, init, PD.poa_dp_tb_cluster)
     one, ladder, n_ladder = _plan_turns(t, init, PD.poa_dp_tb_cluster,
                                         LADDER_CHUNK["poa_dp_tb_cluster"])
-    plain_dp = _cuda_ms(lambda: PD.poa_dp_plain(*t, init), 1)
-    plain_tb = _cuda_ms(lambda: PD.poa_traceback_plain(tbits, t[1], sinks, t[5]), 1)
-    B, V, W = tbits.shape
-    P = t[1].shape[-1]
-    dp_bytes, dp_ops = _poa_dp_work(t)
-    tb_bytes, tb_ops = _walk_work(tlen, B, V, W, False)
-    results["poa_dp"].update(ms=sum(k2) / 2, plain_ms=plain_dp,
-                             max_abs_err=max(results["poa_dp"]["max_abs_err"], *errs),
-                             **_bound_keys(dp_bytes, dp_ops, F32_OPS_PER_S))
-    results["poa_traceback"].update(ms=sum(k3) / 2, plain_ms=plain_tb,
-                                    **_bound_keys(*_walk_work(tlen, B, V, W), F32_OPS_PER_S))
+    B, V = t[0].shape
+    W, P = init.shape[0], t[1].shape[-1]
     results["poa_dp_tb_cluster"].update(
-        ms=sum(k8) / 2, plain_ms=plain_dp + plain_tb,
-        max_abs_err=max(results["poa_dp_tb_cluster"]["max_abs_err"], *errs8),
-        **_bound_keys(dp_bytes + tb_bytes, dp_ops + tb_ops, F32_OPS_PER_S))
+        max_abs_err=max(results["poa_dp_tb_cluster"]["max_abs_err"], *errs), **entry)
     ctas, clusters, smem = PD.poa_dp_tb_cluster_occupancy(P, W, V)
-    k8r = results["poa_dp_tb_cluster"]
     print(f"[long] largest launch B={B} V={V} W={W} P={P} mean nv {float(t[3].float().mean()):.1f} "
-          f"(max {int(t[3].max())}), {int((nb > 0).sum())} problems on K8's backing store: K8, K2 "
-          f"and K3 equal to the twins; in turns {_turns_line(k2, k3, k8, 'K8')}; K8 bound "
-          f"{k8r['bound_ms']:.4f} ({k8r['bound_by']}), {ctas} CTAs a cluster, {B * ctas} CTAs, "
-          f"{clusters} clusters resident, {smem} B shared memory a CTA; K2 bound "
-          f"{results['poa_dp']['bound_ms']:.4f} ({results['poa_dp']['bound_by']}; plain "
-          f"{plain_dp:.3f}), K3 bound {results['poa_traceback']['bound_ms']:.4f} "
-          f"({results['poa_traceback']['bound_by']}; plain {plain_tb:.3f}); K8 in one launch "
+          f"(max {int(t[3].max())}), {int((nb > 0).sum())} problems on K8's backing store: K8 "
+          f"equal to the plain pair; K8 {line}; {ctas} CTAs a cluster, {B * ctas} CTAs, "
+          f"{clusters} clusters resident, {smem} B shared memory a CTA; K8 in one launch "
           f"against the ladder plan's {n_ladder} launches of at most "
           f"{LADDER_CHUNK['poa_dp_tb_cluster']}, in turns: ladder {ladder[0]:.4f}, one "
           f"{one[0]:.4f}, one {one[1]:.4f}, ladder {ladder[1]:.4f} ms ({card})")
@@ -1734,7 +1465,7 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
     ``testing.wide_route_problems`` (subgraphs of 1,096-7,909 base
     vertices, queries of 8.3-14 kb), each with the launch counters reset
     just before it and read just after: K8 and K9 launched, at W 16,384
-    only, K2, K3, K4, K6 and K7 not; every result equal to the host
+    only, K6 and K7 not; every result equal to the host
     oracle (``poa_global_host_native``, ``align_local_no_gap_host``), and
     the smallest problem's to the ``device="cpu"`` route, and at most 3
     launches of each kernel (one a (V, W) bucket); the largest problem
@@ -1784,7 +1515,7 @@ def phase_wide_route(work, prefix, gfa, graph, dev, card):
         return real[3](*a)
 
     legs = {}
-    others = ("poa_dp", "poa_traceback", "poa_local", "poa_dp_tb", "poa_local_warp")
+    others = ("poa_dp_tb", "poa_local_warp")
     PD.poa_dp_tb_cluster, PD.poa_local_cluster = k8, k9
     try:
         for name, fn, want in (("align_global_batch", PD.align_global_batch,
@@ -2032,12 +1763,11 @@ def _route_leg(label, index, aligner, queries, dev, must, must_not, cpu_sample, 
 
 def phase_python_route(index, graph, reads, dev, card):
     """The Python subgraph route and ``align_global_batch`` on the smoke's
-    graph: the 12,288 reads (K6 once a (V, L) bucket, K2 and K3 not; id mode
+    graph: the 12,288 reads (K6 once a (V, L) bucket, K8 not; id mode
     with bubble closure on a seeded 1,024-read sample), then the long
     reads (K8; the 10 kb read's subgraph on the native host POA)."""
     from vgaligner_tpu_torch.io.fastx import QuerySequence
     from vgaligner_tpu_torch.models.poa_aligner import PoaAligner
-    from vgaligner_tpu_torch.ops import poa_device as PD
     from vgaligner_tpu_torch.testing import long_reads
 
     t0 = time.monotonic()
@@ -2045,7 +1775,7 @@ def phase_python_route(index, graph, reads, dev, card):
     queries = [QuerySequence.from_name_and_string(f"read{i}", r) for i, r in enumerate(reads)]
     launches, n_problems, per_read, _host, buckets = _route_leg(
         "100 bp reads", index, aligner, queries, dev, ("poa_dp_tb",),
-        ("poa_dp", "poa_traceback", "poa_dp_tb_cluster"), CPU_SAMPLE, card)
+        ("poa_dp_tb_cluster",), CPU_SAMPLE, card)
     if launches["poa_dp_tb"] != buckets:
         raise AssertionError(f"align_global_batch launched poa_dp_tb {launches['poa_dp_tb']} "
                              f"times for {n_problems} problems, not once a bucket ({buckets})")
@@ -2063,7 +1793,7 @@ def phase_python_route(index, graph, reads, dev, card):
               for i, r in enumerate(long_reads(graph, N_LONG))]
     launches_long, _n, _per_read, host, buckets = _route_leg(
         "long reads", index, aligner, long_q, dev, ("poa_dp_tb_cluster",),
-        ("poa_dp", "poa_traceback"), 8, card)
+        (), 8, card)
     if not any(v > 8192 for v in host):
         raise AssertionError("the 10 kb read's subgraph did not take the native host POA")
     if launches_long["poa_dp_tb"] + launches_long["poa_dp_tb_cluster"] != buckets:
@@ -2100,9 +1830,8 @@ def phase_suite(work, card):
         for want in ("chain_dp", "poa_dp_tb"):
             if launches[want] <= 0:
                 raise AssertionError(f"[suite] {name} never launched {want}: {launches}")
-        for unwanted in ("poa_dp", "poa_traceback", "chain_dp_exact"):
-            if launches[unwanted] != 0:
-                raise AssertionError(f"[suite] {name} launched {unwanted}: {launches}")
+        if launches["chain_dp_exact"] != 0:
+            raise AssertionError(f"[suite] {name} launched chain_dp_exact: {launches}")
         on_cpu = run_dataset(gfa, name, 512, READ_LEN, K, "fast", "abpoa", device="cpu")
         a = {k: v for k, v in vars(on_card).items() if k not in timings}
         b = {k: v for k, v in vars(on_cpu).items() if k not in timings}
@@ -2124,27 +1853,23 @@ def kernel_line(results, launches, launches_rspoa, launches_long, launches_long_
     """The per-kernel result line: each kernel (K8 and K9 once more at W
     16,384, with the launches of the 16,384-column route leg) with the
     launches of the path that runs it and its measured and bound times."""
-    k2_replaces = "vgaligner_tpu/ops/poa_pallas2.py:434, vgaligner_tpu/ops/poa_pallas.py:258"
-    k3_replaces = "vgaligner_tpu/ops/poa_device.py:325"
-    k4_replaces = "vgaligner_tpu/ops/poa_device.py:1075"
-    first = "(the first port, at any width up to 16,384; no route launches it)"
+    dp_replaces = "vgaligner_tpu/ops/poa_pallas2.py:434, vgaligner_tpu/ops/poa_pallas.py:258"
+    tb_replaces = "vgaligner_tpu/ops/poa_device.py:325"
+    local_replaces = "vgaligner_tpu/ops/poa_device.py:1075"
     wide = "(rows of 16,384 columns, and widths off the power-of-two ladder padded to the next)"
     sources = {
         "chain_dp": ("chain_dp.cu", "vgaligner_tpu/ops/chain_pallas.py:187", launches),
-        "poa_dp": ("poa_dp.cu", f"{k2_replaces} {first}", launches_long),
-        "poa_traceback": ("poa_traceback.cu", f"{k3_replaces} {first}", launches_long),
-        "poa_dp_tb": ("poa_dp_tb.cu", f"{k2_replaces}, {k3_replaces} (rows up to 256 "
+        "poa_dp_tb": ("poa_dp_tb.cu", f"{dp_replaces}, {tb_replaces} (rows up to 256 "
                       "columns)", launches),
-        "poa_dp_tb_cluster": ("poa_dp_tb_cluster.cu", f"{k2_replaces}, {k3_replaces} (rows of "
+        "poa_dp_tb_cluster": ("poa_dp_tb_cluster.cu", f"{dp_replaces}, {tb_replaces} (rows of "
                               "512-8,192 columns)", launches_long),
-        "poa_dp_tb_cluster_w16384": ("poa_dp_tb_cluster.cu", f"{k2_replaces}, {k3_replaces} "
+        "poa_dp_tb_cluster_w16384": ("poa_dp_tb_cluster.cu", f"{dp_replaces}, {tb_replaces} "
                                      f"{wide}", launches_wide, "poa_dp_tb_cluster"),
-        "poa_local": ("poa_local.cu", f"{k4_replaces} {first}", launches_long_rspoa),
-        "poa_local_warp": ("poa_local_warp.cu", f"{k4_replaces} (rows up to 256 columns)",
+        "poa_local_warp": ("poa_local_warp.cu", f"{local_replaces} (rows up to 256 columns)",
                            launches_rspoa),
-        "poa_local_cluster": ("poa_local_cluster.cu", f"{k4_replaces} (rows of 512-8,192 "
+        "poa_local_cluster": ("poa_local_cluster.cu", f"{local_replaces} (rows of 512-8,192 "
                               "columns)", launches_long_rspoa),
-        "poa_local_cluster_w16384": ("poa_local_cluster.cu", f"{k4_replaces} {wide}",
+        "poa_local_cluster_w16384": ("poa_local_cluster.cu", f"{local_replaces} {wide}",
                                      launches_wide_local, "poa_local_cluster"),
         "chain_dp_exact": ("chain_dp_exact.cu", "vgaligner_tpu/ops/chain.py:102-177",
                            launches_rspoa),
@@ -2197,10 +1922,8 @@ def main() -> int:
             return out
 
         timed("chain kernels", phase_chain_kernels, index, reads, dev, results)
-        main_t, main_init = timed("POA kernels", phase_poa_kernels, dev, results)
-        timed("K6", phase_fused_kernel, dev, results, main_t, main_init)
+        timed("K6", phase_fused_kernel, dev, results)
         timed("K8", phase_cluster_kernel, dev, results)
-        timed("K4", phase_local_kernel, dev, results)
         timed("K7", phase_local_warp_kernel, dev, results)
         timed("K9", phase_local_cluster_kernel, dev, results)
         launches, main_out = timed("abPOA CLI", phase_main_path, work, prefix, gfa, fasta,

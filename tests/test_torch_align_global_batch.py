@@ -2,8 +2,8 @@
 entry point for (nodes, edges, query) problems, tolerance 0.
 
   * random DAG problems over every row width the kernels route by: rows
-    up to 256 columns (K6's), 512 and 1,024 (K8's) and 16,384 (K2 +
-    K3's, at a small V), and subgraphs over 8,192 base vertices (the
+    up to 256 columns (K6's), 512, 1,024 and 16,384 (K8's, the last at a
+    small V), and subgraphs over 8,192 base vertices (the
     native host POA): each ``PoaResult`` equal, field for field, to the
     port's ``align_global_host`` and to the JAX package's
     ``align_global_batch``;
@@ -60,7 +60,7 @@ def _problems():
     probs += [_problem(rng, 40, 5, 100) for _ in range(5)]  # V 256, W 128 (K6)
     probs += [_problem(rng, 120, 6, 200) for _ in range(2)]  # V 512, W 256 (K6)
     probs += [_problem(rng, 90, 6, 300), _problem(rng, 150, 6, 700)]  # W 512, 1,024 (K8)
-    probs += [_problem(rng, 12, 5, 8300)]  # W 16,384 at V 256 (K2 + K3)
+    probs += [_problem(rng, 12, 5, 8300)]  # W 16,384 at V 256 (K8)
     probs += [_problem(rng, 1400, 12, 120)]  # over 8,192 vertices: the native host POA
     return probs
 

@@ -81,13 +81,12 @@ def test_cluster_cpu_route_matches_jax(P, W):
 
 def test_each_width_takes_its_kernel():
     calls = []
-    real = PD.poa_local_warp, PD.poa_local_cluster, PD.poa_local_block
+    real = PD.poa_local_warp, PD.poa_local_cluster
 
     def spy(name, fn):
         return lambda *a: calls.append(name) or fn(*a)
 
-    PD.poa_local_warp, PD.poa_local_cluster, PD.poa_local_block = (spy(n, f) for n, f in zip(
-        ("K7", "K9", "K4"), real))
+    PD.poa_local_warp, PD.poa_local_cluster = (spy(n, f) for n, f in zip(("K7", "K9"), real))
     before = kernels.launch_counts()
     try:
         for W in (128, 384, 512, 1024, 2048, 4096, 8192, 16384):
@@ -95,7 +94,7 @@ def test_each_width_takes_its_kernel():
             best, tape, tlen, qend = PD.poa_local(*t)
             assert tape.shape == (2, W) and (tlen[1:] > 0).all()
     finally:
-        PD.poa_local_warp, PD.poa_local_cluster, PD.poa_local_block = real
+        PD.poa_local_warp, PD.poa_local_cluster = real
     assert calls == ["K7", "K9", "K9", "K9", "K9", "K9", "K9", "K9"]  # 384 padded to 512
     assert kernels.launch_counts() == before
 

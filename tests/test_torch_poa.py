@@ -72,8 +72,8 @@ def _compare(arrs, l_pad, fused=False):
     if fused:
         s, k, tb, tape, tl, _nb = PD.poa_dp_tb(*t, torch.from_numpy(init_row))
     else:
-        s, k, tb = PD.poa_dp(*t, torch.from_numpy(init_row))
-        tape, tl = PD.poa_traceback(tb, t[1], k, t[5])
+        s, k, tb = PD.poa_dp_plain(*t, torch.from_numpy(init_row))
+        tape, tl = PD.poa_traceback_plain(tb, t[1], k, t[5])
     np.testing.assert_array_equal(s.numpy(), js)
     np.testing.assert_array_equal(k.numpy(), jk)
     for b in range(len(nv)):
@@ -140,21 +140,20 @@ def test_fused_route_matches_jax(P, W):
 def test_fused_route_takes_rows_up_to_256():
     assert PD.TB_WIDTHS == (32, 64, 128, 256)
     calls = []
-    real_tb, real_cl, real_dp = PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp
+    real_tb, real_cl = PD.poa_dp_tb, PD.poa_dp_tb_cluster
 
     def spy(name, fn):
         return lambda *a: calls.append(name) or fn(*a)
 
-    PD.poa_dp_tb, PD.poa_dp = spy("tb", real_tb), spy("dp", real_dp)
-    PD.poa_dp_tb_cluster = spy("cluster", real_cl)
+    PD.poa_dp_tb, PD.poa_dp_tb_cluster = spy("tb", real_tb), spy("cluster", real_cl)
     try:
         for W in (128, 256, 384, 512):
             arrs = [torch.from_numpy(a) for a in random_poa_batch(W, 2, 32, 2, W - 1)]
             PD.dp_and_traceback(*arrs, torch.from_numpy(PD.make_init_row(W - 1)))
     finally:
-        PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp = real_tb, real_cl, real_dp
+        PD.poa_dp_tb, PD.poa_dp_tb_cluster = real_tb, real_cl
     # wider rows: 512-16,384 columns on the cluster kernel, other widths
-    # padded on the right to the next (384 runs at 512), never on K2 + K3
+    # padded on the right to the next (384 runs at 512)
     assert calls == ["tb", "tb", "cluster", "cluster"]
 
 

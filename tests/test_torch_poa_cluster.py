@@ -17,8 +17,8 @@ tolerance 0.
     boundary and whose long insertion crosses several;
   * ``dp_and_traceback`` routes each width to its kernel, off-ladder
     widths padded on the right, and CPU tensors launch none; every width
-    from 1 to 16,384 maps to K6 or K8 (and K7 or K9 for the local POA),
-    never to K2, K3 or K4; the padded plain twins equal the unpadded ones
+    from 1 to 16,384 maps to K6 or K8 (and K7 or K9 for the local POA);
+    the padded plain twins equal the unpadded ones
     and JAX ``poa_global_kernel`` at L 300 and 9,000;
   * the kernel source's ring, pin and slice sizes are the wrapper's.
 """
@@ -282,13 +282,12 @@ def test_column_split_model_16_slices_of_1024():
 
 def test_each_width_takes_its_kernel():
     calls = []
-    real = PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp
+    real = PD.poa_dp_tb, PD.poa_dp_tb_cluster
 
     def spy(name, fn):
         return lambda *a: calls.append(name) or fn(*a)
 
-    PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp = (spy(n, f) for n, f in zip(
-        ("K6", "K8", "K2"), real))
+    PD.poa_dp_tb, PD.poa_dp_tb_cluster = (spy(n, f) for n, f in zip(("K6", "K8"), real))
     before = kernels.launch_counts()
     try:
         for W in (128, 384, 512, 1024, 2048):
@@ -296,7 +295,7 @@ def test_each_width_takes_its_kernel():
             score, tape, tlen = PD.dp_and_traceback(*arrs, torch.from_numpy(PD.make_init_row(W - 1)))
             assert tape.shape == (2, 24 + W + 1) and (tlen > 0).all()
     finally:
-        PD.poa_dp_tb, PD.poa_dp_tb_cluster, PD.poa_dp = real
+        PD.poa_dp_tb, PD.poa_dp_tb_cluster = real
     assert calls == ["K6", "K8", "K8", "K8", "K8"]  # 384 runs padded to 512
     assert kernels.launch_counts() == before
 
@@ -304,7 +303,7 @@ def test_each_width_takes_its_kernel():
 def test_every_width_routes_to_a_redesigned_kernel():
     """Every row width up to 16,384, off the ladder too, runs on K6 or K8
     (global) and K7 or K9 (local) at the narrowest width they take that
-    holds it; K2, K3 and K4 are no route's, and wider rows are refused."""
+    holds it, and wider rows are refused."""
     assert PD.ROUTE_WIDTHS == (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
     for W in range(1, 16385):
         kernel, w = PD.global_route(W)
@@ -318,8 +317,7 @@ def test_every_width_routes_to_a_redesigned_kernel():
         with pytest.raises(ValueError):
             route(16385)
     calls = []
-    names = ("poa_dp", "poa_traceback", "poa_local_block", "poa_dp_tb", "poa_dp_tb_cluster",
-             "poa_local_warp", "poa_local_cluster")
+    names = ("poa_dp_tb", "poa_dp_tb_cluster", "poa_local_warp", "poa_local_cluster")
     real = {n: getattr(PD, n) for n in names}
     try:
         for n, fn in real.items():
@@ -333,7 +331,6 @@ def test_every_width_routes_to_a_redesigned_kernel():
     finally:
         for n, fn in real.items():
             setattr(PD, n, fn)
-    assert not {"poa_dp", "poa_traceback", "poa_local_block"} & set(calls)
     assert calls == ["poa_dp_tb", "poa_local_warp"] * 2 + [
         "poa_dp_tb_cluster", "poa_local_cluster"] * 5
 

@@ -4,7 +4,7 @@ Pallas DP (``vgaligner_tpu/ops/poa_pallas.py``), tolerance 0.
 The JAX side is ``poa_global_kernel(..., use_pallas=True)``; on the CPU
 its Pallas kernel runs in interpret mode, as tests/test_poa_pallas.py
 runs it.  The port's ``poa_global_kernel`` pads the row to the same
-128-multiple width and runs its one POA DP (K2's twin on the CPU).
+128-multiple width and runs its one POA DP (``poa_dp_plain`` on the CPU).
 Where JAX's own VMEM budget sends a shape to the XLA scan, its tape is
 the unpadded width's, and the tapes are compared up to tlen.
 """

@@ -1,13 +1,13 @@
 """Build, bind and count the port's CUDA kernels.
 
-The kernels (``csrc/*.cu``: chaining DP fast and exact, POA DP, POA
-traceback, the fused POA DP + traceback for rows up to 256 columns and,
-one thread-block cluster a problem, for rows of 512-16,384 columns,
-local POA, local POA one warp a problem for rows up to 256 columns, and
-one thread-block cluster a problem for rows of 512-16,384; the POA DP,
-POA traceback and local POA of one block a problem are the first ports,
-which no route launches) are compiled
-by ``nvcc`` for ``sm_90a``, one process per source, all started
+The six kernels (``csrc/*.cu``): the chaining DP, fast (``chain_dp``)
+and exact (``chain_dp_exact``); the global POA DP and its traceback in
+one kernel, one warp a problem for rows of up to 256 columns
+(``poa_dp_tb``) and one thread-block cluster a problem for rows of
+512-16,384 (``poa_dp_tb_cluster``); and the local gapless POA with its
+traceback, one warp a problem up to 256 columns (``poa_local_warp``) and
+one cluster a problem at 512-16,384 (``poa_local_cluster``).  They are
+compiled by ``nvcc`` for ``sm_90a``, one process per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded with ctypes.  The build runs
 at first use, into ``vgaligner_tpu_torch/_build/``, keyed by a hash of
@@ -39,18 +39,16 @@ from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp.cu", "poa_traceback.cu",
-           "poa_dp_tb.cu", "poa_dp_tb_cluster.cu", "poa_local.cu", "poa_local_warp.cu",
-           "poa_local_cluster.cu")
+SOURCES = ("chain_dp.cu", "chain_dp_exact.cu", "poa_dp_tb.cu", "poa_dp_tb_cluster.cu",
+           "poa_local_warp.cu", "poa_local_cluster.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp": 0, "poa_traceback": 0,
-            "poa_dp_tb": 0, "poa_dp_tb_cluster": 0, "poa_local": 0, "poa_local_warp": 0,
-            "poa_local_cluster": 0, "chain_gap_cost": 0}
+LAUNCHES = {"chain_dp": 0, "chain_dp_exact": 0, "poa_dp_tb": 0, "poa_dp_tb_cluster": 0,
+            "poa_local_warp": 0, "poa_local_cluster": 0, "chain_gap_cost": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -159,8 +157,6 @@ def lib() -> ctypes.CDLL:
         so.vg_chain_dp_exact.restype = ci
         so.vg_chain_dp_exact_occupancy.argtypes = [ci, ci, vp]
         so.vg_chain_dp_exact_occupancy.restype = ci
-        so.vg_poa_local.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 7
-        so.vg_poa_local.restype = ci
         so.vg_poa_local_warp.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 9
         so.vg_poa_local_warp.restype = ci
         so.vg_poa_local_warp_occupancy.argtypes = [ci, ci, ci, vp]
@@ -169,10 +165,6 @@ def lib() -> ctypes.CDLL:
         so.vg_poa_local_cluster.restype = ci
         so.vg_poa_local_cluster_occupancy.argtypes = [ci, ci, ci, vp]
         so.vg_poa_local_cluster_occupancy.restype = ci
-        so.vg_poa_dp.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 5
-        so.vg_poa_dp.restype = ci
-        so.vg_poa_traceback.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 3
-        so.vg_poa_traceback.restype = ci
         so.vg_poa_dp_tb.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 9
         so.vg_poa_dp_tb.restype = ci
         so.vg_poa_dp_tb_occupancy.argtypes = [ci, ci, ci, vp]
@@ -185,15 +177,6 @@ def lib() -> ctypes.CDLL:
         so.vg_cuda_error_string.restype = ctypes.c_char_p
         _lib = so
         return _lib
-
-
-def check_row_width(name: str, W: int) -> None:
-    """The row widths a one-block-per-problem row kernel (POA DP, local
-    POA) takes: one thread per column up to W = 1,024, then 1,024
-    threads of W / 1,024 columns each, up to W = 16,384."""
-    if not ((W % 32 == 0 and W <= 1024) or (W % 1024 == 0 and W // 1024 in (2, 4, 8, 16))):
-        raise ValueError(f"{name}: unsupported row width W={W} "
-                         "(a multiple of 32 up to 1,024, or 1,024 x 2/4/8/16)")
 
 
 def check(rc: int, name: str) -> None:

@@ -11,9 +11,37 @@
 // poa_traceback_plain: score, best_sink, tbits over rows v < nv[b], tape
 // and tlen.  Wider rows take poa_dp_tb_cluster.cu.
 //
-// The recurrence, the f32 operations and their order, the tie rules and
-// the 19 decision bits are poa_dp.cu's (see there); the walk is
-// poa_traceback.cu's.
+// Per problem b: a base-level DAG of nv[b] vertices in topological
+// order, each with up to P predecessor slots (-1 = dead), aligned
+// globally against the query q[b, :nq[b]] with abPOA's defaults (match
+// 2, mismatch -4, N always mismatches, two-piece gaps 4+2g and 24+g).
+// Row V of the state is the virtual source: H = init_row, E1 = E2 = NEGF.
+// For each vertex v and column j (W = L + 1 columns):
+//   E1/E2 (graph gaps): per slot max(H_p - (o+e), E_p - e); the first
+//     slot at the column max, and whether open >= extend there;
+//   M: per slot H_p[j-1] + sub(q[j-1], code[v]) (NEGF at j = 0);
+//   h_pre = max(M, E1, E2), ties M > E1 > E2;
+//   F1/F2 (in-row gaps) in closed form: c = inclusive prefix max of
+//     h_pre + e*j, F[j] = (c[j-1] - o) - e*j, F[0] = NEGF;
+//   H = max(h_pre, F1, F2), ties h_pre > F1 > F2;
+//   19 decision bits per cell (layout in ops/poa_device.py), a slot that
+//     is not a live predecessor stored as 15 (virtual source).
+// The best sink is the first v < nv with is_sink at the column-nq max.
+// Arithmetic is f32 with NEGF = -1e9 in the JAX op order: near NEGF f32
+// spacing is 64, so unreachable cells round, and the open >= extend bits
+// there depend on doing exactly these f32 operations; each step is
+// written __fadd_rn/__fsub_rn.  The prefix maxima are exact in any order.
+//
+// The walk goes from (v, j) = (best_sink[b], nq[b]) in state H through
+// the H/E/F state machine until it reaches the virtual source (v = -2)
+// at column 0: in H a match case consumes (v, j) -> (pred, j-1) and an
+// E1/E2/F1/F2 case switches state without a step of its own; E (graph
+// deletion) emits D at v and moves to the stored pred slot, F (in-row
+// insertion) emits I at v, j-1, each back to H when its cell was opened
+// (not extended); at the virtual source every remaining column is an
+// insertion.  Each step writes op | (vid + 2) << 2 (vid -1 for the
+// source); the rest of the V + W + 1 entries hold OP_END | 1 << 2, and
+// tlen counts the others.
 //
 // What bounds it on the card: the one output that must reach device
 // memory is tbits, 4 bytes a cell written once (134 MB for 1,024

@@ -10,12 +10,10 @@
 // vgaligner_tpu/ops/poa_device.py::traceback_batch (:325).  Its outputs
 // are bit-identical to ops/poa_device.py::poa_dp_plain followed by
 // poa_traceback_plain: score, best_sink, tbits over rows v < nv[b], tape
-// and tlen.  Rows of up to 256 columns take poa_dp_tb.cu.  (poa_dp.cu and
-// poa_traceback.cu, the first ports, take any width up to 16,384; no route
-// of the wrapper reaches them.)
+// and tlen.  Rows of up to 256 columns take poa_dp_tb.cu.
 //
 // The recurrence, the f32 operations and their order, the tie rules and
-// the 19 decision bits are poa_dp.cu's (see there); the row state plan
+// the 19 decision bits, the row state plan
 // (a ring of RING rows, PINS pinned far rows, a global backing store past
 // them, counted in n_backing, that holds only the rows the host counted
 // for each problem, a far vertex's row its rank among its problem's

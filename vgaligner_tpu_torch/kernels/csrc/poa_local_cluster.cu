@@ -7,10 +7,7 @@
 // vertices, then a scan for the traceback) with no Pallas kernel.  Its
 // outputs are bit-identical to ops/poa_device.py::poa_local_plain: best
 // [B] f32, tape [B, W] i32 (the END fill included), tlen and qend.  Rows
-// of up to 256 columns take poa_local_warp.cu.  poa_local.cu, the first
-// port, whose header states the recurrence, takes any width up to 16,384
-// but no route of the wrapper reaches it; this kernel computes the same
-// recurrence:
+// of up to 256 columns take poa_local_warp.cu.  The recurrence:
 //   cand_p[j] = H[pred_p][j-1] for a live slot, 0 for a dead one, 0 at j = 0;
 //   m_best = max(max_p cand_p, 0); slot = the first live slot at m_best
 //     when m_best > 0, else 15;
@@ -23,7 +20,7 @@
 // memory is the cell bytes, 1 byte a cell below nv.  The vertex loop is
 // serial within a problem and the walk is a chain of dependent loads, so
 // the design attacks each problem's latency, the bytes around it, and
-// the SMs that one block a problem (poa_local.cu) leaves idle:
+// the SMs that one block a problem would leave idle:
 //
 //  * a cluster of N = W / S CTAs a problem, S = min(SLICE, W) columns a
 //    CTA (N = 1, one CTA and no cluster barrier, up to W 2,048; 2, 4 and

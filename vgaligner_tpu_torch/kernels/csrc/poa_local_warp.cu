@@ -7,8 +7,8 @@
 // vertices, then a scan for the traceback) with no Pallas kernel.  Its
 // outputs are bit-identical to ops/poa_device.py::poa_local_plain: best
 // [B] f32, tape [B, W] i32 (W = L + 1, the END fill included), tlen and
-// qend.  Wider rows keep poa_local.cu, whose header states the
-// recurrence; this kernel computes the same one:
+// qend.  Rows of 512-16,384 columns take poa_local_cluster.cu.  The
+// recurrence:
 //   cand_p[j] = H[pred_p][j-1] for a live slot, 0 for a dead one, 0 at j = 0;
 //   m_best = max(max_p cand_p, 0); slot = the first live slot at m_best
 //     when m_best > 0, else 15;

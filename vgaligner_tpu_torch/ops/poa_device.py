@@ -12,14 +12,11 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     512-16,384 columns take ``poa_dp_tb_cluster``, one kernel for both,
     one thread-block cluster a problem (kernels/csrc/poa_dp_tb_cluster.cu);
     a row of another width is padded on the right to the next of those
-    widths (``route_width``).  ``poa_dp`` (kernels/csrc/poa_dp.cu) and
-    ``poa_traceback`` (kernels/csrc/poa_traceback.cu), the first ports,
-    stay callable at any width up to 16,384, but no route launches them.
-    On the CPU every route runs the plain twins ``poa_dp_plain`` and
-    ``poa_traceback_plain``.  Each launch's tape comes back sliced to its
-    longest walk and the native runtime decodes it into cigar/cs/node
-    paths.  ``poa_global_kernel``
-    runs the same DP under the lane-padded contract of the JAX package's
+    widths (``route_width``).  On the CPU every route runs the plain
+    twins ``poa_dp_plain`` and ``poa_traceback_plain``.  Each launch's
+    tape comes back sliced to its longest walk and the native runtime
+    decodes it into cigar/cs/node paths.  ``poa_global_kernel`` runs the
+    same DP under the lane-padded contract of the JAX package's
     Pallas kernel ``poa_dp_pallas``.  ``align_global_batch`` takes
     (nodes, edges, query) problems and runs them through the same
     builder, launches and kernels (the batch entry point that needs no
@@ -33,9 +30,7 @@ Counterpart of ``vgaligner_tpu/ops/poa_device.py`` for both engines.
     (kernels/csrc/poa_local_warp.cu); rows of 512-16,384 columns take
     ``poa_local_cluster``, one thread-block cluster a problem
     (kernels/csrc/poa_local_cluster.cu); other widths are padded on the
-    right as the global route's are.  ``poa_local_block``
-    (kernels/csrc/poa_local.cu), the first port, is launched by no route;
-    on the CPU, ``poa_local_plain``.
+    right as the global route's are; on the CPU, ``poa_local_plain``.
 
 Scores are integer-valued f32 with abPOA's defaults (match 2, mismatch
 -4, gaps 4+2g and 24+g).  Decision bits per cell (int32):
@@ -258,34 +253,6 @@ def _check_dp_inputs(name, vcodes, vpred, is_sink, nv, q, nq, init_row):
     return B, V, P, L
 
 
-def poa_dp(vcodes, vpred, is_sink, nv, q, nq, init_row):
-    """POA DP: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors.  Same arguments and outputs as ``poa_dp_plain`` (tbits rows
-    at or past nv are unspecified).  No route of ``dp_and_traceback``
-    launches it; it is the first port, kept as what the fused kernels
-    are timed against."""
-    if vcodes.device.type == "cpu":
-        return poa_dp_plain(vcodes, vpred, is_sink, nv, q, nq, init_row)
-    B, V, P, L = _check_dp_inputs("poa_dp", vcodes, vpred, is_sink, nv, q, nq, init_row)
-    W = L + 1
-    kernels.check_row_width("poa_dp", W)
-    dev = vcodes.device
-    S = torch.empty((B, V + 1, 3 * W), dtype=torch.float32, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    best_sink = torch.empty(B, dtype=torch.int32, device=dev)
-    tbits = torch.empty((B, V, W), dtype=torch.int32, device=dev)
-    so = kernels.lib()
-    kernels.LAUNCHES["poa_dp"] += 1
-    kernels.check(
-        so.vg_poa_dp(vcodes.data_ptr(), vpred.data_ptr(), is_sink.data_ptr(), nv.data_ptr(),
-                     q.data_ptr(), nq.data_ptr(), init_row.data_ptr(), B, V, P, L,
-                     S.data_ptr(), score.data_ptr(), best_sink.data_ptr(),
-                     tbits.data_ptr(), kernels.stream_ptr(dev)),
-        "poa_dp",
-    )
-    return score, best_sink, tbits
-
-
 # ---------------------------------------------------------------------------
 # traceback
 
@@ -341,36 +308,6 @@ def poa_traceback_plain(tbits, vpred, best_sink, nq):
         j = torch.where(done, j, j2)
         st = torch.where(done, st, st2)
     tlen = ((tape & 3) != OP_END).sum(dim=1).to(torch.int32)
-    return tape, tlen
-
-
-def poa_traceback(tbits, vpred, best_sink, nq):
-    """Traceback: the CUDA kernel for CUDA tensors, the plain twin for
-    CPU tensors.  Same arguments and outputs as ``poa_traceback_plain``.
-    No route launches it (see ``poa_dp``)."""
-    if tbits.device.type == "cpu":
-        return poa_traceback_plain(tbits, vpred, best_sink, nq)
-    B, V, C = tbits.shape
-    P = vpred.shape[-1]
-    checks = ((tbits, torch.int32, (B, V, C)), (vpred, torch.int32, (B, V, P)),
-              (best_sink, torch.int32, (B,)), (nq, torch.int32, (B,)))
-    for t, dt, shape in checks:
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"poa_traceback: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
-    kernels.require_cuda("poa_traceback", tbits, vpred, best_sink, nq)
-    dev = tbits.device
-    T = V + C + 1
-    tape = torch.empty((B, T), dtype=torch.int32, device=dev)
-    tlen = torch.empty(B, dtype=torch.int32, device=dev)
-    so = kernels.lib()
-    kernels.LAUNCHES["poa_traceback"] += 1
-    kernels.check(
-        so.vg_poa_traceback(tbits.data_ptr(), vpred.data_ptr(), best_sink.data_ptr(),
-                            nq.data_ptr(), B, V, C, P, tape.data_ptr(), tlen.data_ptr(),
-                            kernels.stream_ptr(dev)),
-        "poa_traceback",
-    )
     return tape, tlen
 
 
@@ -455,7 +392,7 @@ def _dp_tb_buffers(vcodes, vpred, nv, W: int, back_rows):
 def poa_dp_tb(vcodes, vpred, is_sink, nv, q, nq, init_row, back_rows=None):
     """POA DP and traceback: one CUDA kernel for CUDA tensors (rows of W
     = L + 1 in TB_WIDTHS), ``poa_dp_plain`` then ``poa_traceback_plain``
-    for CPU tensors.  Same arguments as ``poa_dp``, plus ``back_rows``
+    for CPU tensors.  Same arguments as ``poa_dp_plain``, plus ``back_rows``
     (the host's ``backing_rows_plain`` per problem, which sizes the
     backing store; None counts them here) -> (score, best_sink, tbits,
     tape, tlen, n_backing): the first five as the two twins give them
@@ -602,8 +539,7 @@ def dp_and_traceback(vcodes, vpred, is_sink, nv, q, nq, init_row, back_rows=None
     CLUSTER_WIDTHS, each given ``back_rows``; a row of another width up
     to 16,384 is padded on the right to the next of those widths
     (``pad_row``, exact) and its tape cut back to V + W + 1 entries (the
-    walk takes at most V + nq + 1 steps).  ``poa_dp`` and
-    ``poa_traceback`` are launched at no width.  Each call is one launch,
+    walk takes at most V + nq + 1 steps).  Each call is one launch,
     counted under ``LAUNCH_COUNTER[kernel]`` (on the CPU too, where the
     kernel's plain twin runs it)."""
     V, W = vcodes.shape[1], q.shape[1] + 1
@@ -624,9 +560,9 @@ def poa_global_kernel(vcodes, vpred, is_sink, nv, q, nq, init_row):
     to l_w = ceil((L+1)/128)*128 columns, the query with code 4 and
     ``init_row`` with NEGF, and the traceback walks the l_w-wide bits.
 
-    Same arguments as ``poa_dp`` with q [B, L] and init_row [L+1] ->
+    Same arguments as ``poa_dp_plain`` with q [B, L] and init_row [L+1] ->
     (score [B] f32, tape [B, V+l_w+1] int32, tlen [B] int32).  That DP is
-    ``poa_dp``'s at this width, so it takes the route ``dp_and_traceback``
+    ``poa_dp_plain``'s at this width, so it takes the route ``dp_and_traceback``
     gives that width (an l_w off the power-of-two ladder, such as 384,
     runs padded to the next width a fused kernel takes)."""
     q_w, init_w = lane_pad(q, init_row)
@@ -983,9 +919,8 @@ def poa_local(vcodes, vpred, nv, q, nq, back_rows=None):
     ``poa_local_cluster`` for W in CLUSTER_WIDTHS (512-16,384); both take
     ``back_rows``.  A row of another width up to 16,384 is padded on the
     right to the next of those widths (``pad_row``, exact) and its tape
-    cut back to W entries.  Each runs the plain twin for CPU tensors, and
-    ``poa_local_block`` is launched at no width.  Same arguments and
-    outputs as ``poa_local_plain``, except tlen -1 for a problem that
+    cut back to W entries.  Each runs the plain twin for CPU tensors.
+    Same arguments and outputs as ``poa_local_plain``, except tlen -1 for a problem that
     needs more backing rows than ``back_rows`` gave it."""
     W = q.shape[1] + 1
     kernel, w = local_route(W)
@@ -996,37 +931,6 @@ def poa_local(vcodes, vpred, nv, q, nq, back_rows=None):
     else:
         best, tape, tlen, qend = poa_local_cluster(vcodes, vpred, nv, q, nq, back_rows)[:4]
     return best, tape[:, :W], tlen, qend
-
-
-def poa_local_block(vcodes, vpred, nv, q, nq):
-    """Local gapless DP + traceback, one block a problem: the CUDA kernel
-    (kernels/csrc/poa_local.cu) for CUDA tensors at any width
-    ``kernels.check_row_width`` takes, the plain twin for CPU tensors.
-    Same arguments and outputs as ``poa_local_plain``.  No route of
-    ``poa_local`` launches it; it is the first port, kept as what the
-    cluster kernel is timed against."""
-    if vcodes.device.type == "cpu":
-        return poa_local_plain(vcodes, vpred, nv, q, nq)
-    B, V, P, L = _check_local_inputs("poa_local", vcodes, vpred, nv, q)
-    W = L + 1
-    kernels.check_row_width("poa_local", W)
-    dev = vcodes.device
-    H = torch.zeros((B, V + 1, W), dtype=torch.float32, device=dev)
-    cells = torch.zeros((B, V, W), dtype=torch.uint8, device=dev)
-    best = torch.empty(B, dtype=torch.float32, device=dev)
-    tape = torch.empty((B, W), dtype=torch.int32, device=dev)
-    tlen = torch.empty(B, dtype=torch.int32, device=dev)
-    qend = torch.empty(B, dtype=torch.int32, device=dev)
-    so = kernels.lib()
-    kernels.LAUNCHES["poa_local"] += 1
-    kernels.check(
-        so.vg_poa_local(vcodes.data_ptr(), vpred.data_ptr(), nv.data_ptr(), q.data_ptr(),
-                        B, V, P, L, H.data_ptr(), cells.data_ptr(), best.data_ptr(),
-                        tape.data_ptr(), tlen.data_ptr(), qend.data_ptr(),
-                        kernels.stream_ptr(dev)),
-        "poa_local",
-    )
-    return best, tape, tlen, qend
 
 
 def _local_buffers(vcodes, vpred, nv, W: int, back_rows):
